@@ -1,0 +1,60 @@
+"""State carried across from the JAX package.
+
+The system has no learned weights; what crosses over is the configuration
+and, for tests that feed one side's intermediate into the other, arrays.
+Everything here takes plain Python / NumPy values, so this module needs
+neither package's array library but torch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .config import SiftConfig
+from .features import FeatureTable
+
+# fields of the JAX SiftConfig that select TPU execution paths only
+_DROPPED = ("canvas_bf16", "use_pallas")
+
+
+def config_from_dict(d: Mapping) -> SiftConfig:
+    """dataclasses.asdict() of the JAX package's SiftConfig -> the port's.
+    The TPU-only switches are dropped; an unknown key is refused."""
+    known = {f.name for f in dataclasses.fields(SiftConfig)}
+    kw = {k: v for k, v in d.items() if k not in _DROPPED}
+    unknown = sorted(set(kw) - known)
+    if unknown:
+        raise ValueError(f"config_from_dict: unknown keys {unknown}")
+    if isinstance(kw.get("prealloc_size"), list):
+        kw["prealloc_size"] = tuple(kw["prealloc_size"])
+    return SiftConfig(**kw)
+
+
+def feature_table_from_numpy(arrays: Mapping[str, np.ndarray],
+                             device="cpu") -> FeatureTable:
+    """A FeatureTable fetched to NumPy (one array per field) -> the port's
+    FeatureTable of tensors."""
+    dtypes = {"level": torch.int32, "ftype": torch.int32, "valid": torch.bool}
+    missing = sorted(set(FeatureTable._fields) - set(arrays))
+    if missing:
+        raise ValueError(f"feature_table_from_numpy: missing {missing}")
+    return FeatureTable(**{
+        name: torch.as_tensor(np.array(arrays[name]), device=device)
+        .to(dtypes.get(name, torch.float32))
+        for name in FeatureTable._fields})
+
+
+def octave_from_numpy(stack: np.ndarray, device="cpu") -> torch.Tensor:
+    """A Gaussian stack (L, H, W) or (B, L, H, W) -> (B, L, H, W) float32
+    tensor, the input layout of ops.cuda.detect.detect_octave."""
+    t = torch.as_tensor(np.array(stack, np.float32), device=device)
+    if t.ndim == 3:
+        t = t[None]
+    if t.ndim != 4:
+        raise ValueError(f"octave_from_numpy: expected (L, H, W) or "
+                         f"(B, L, H, W), got {tuple(t.shape)}")
+    return t.contiguous()

@@ -1,0 +1,151 @@
+"""Wrappers of the blur, octave-chain and decimation kernels (csrc/conv.cu),
+the counterparts of hessgpu_tpu/ops/pallas/conv.py.
+
+Each wrapper launches its kernel for a CUDA tensor and counts the launch; for
+a tensor on the CPU, and only then, it returns the plain PyTorch version
+(`*_plain`, from ops/gaussian.py and a strided slice). Nothing falls back
+from a failed build or launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..gaussian import blur_taps, octave_chain_taps, taps_f32
+from . import build
+
+MAX_TAPS = 33   # params.KERNEL_MAX_WIDTH, kMaxTaps in csrc/conv.cu
+
+_ptr = ctypes.c_void_p
+_ARGTYPES = {
+    "hg_blur": [_ptr, _ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                _ptr, ctypes.c_int, _ptr],
+    "hg_octave_chain": [_ptr, _ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, _ptr, _ptr, _ptr],
+    "hg_downsample2": [_ptr, _ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_longlong, _ptr],
+}
+
+
+def _fn(name: str):
+    return build.function(name, _ARGTYPES[name])
+
+
+def _check_planes(x: torch.Tensor, name: str) -> None:
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {x.dtype}")
+    if x.ndim != 3:
+        raise ValueError(f"{name}: expected (B, H, W), got {tuple(x.shape)}")
+    if x.shape[0] > 65535:
+        raise ValueError(f"{name}: batch {x.shape[0]} exceeds 65535")
+
+
+def _check_taps(taps: np.ndarray, name: str) -> None:
+    if not (1 <= len(taps) <= MAX_TAPS) or len(taps) % 2 == 0:
+        raise ValueError(f"{name}: tap count {len(taps)} must be odd, <= "
+                         f"{MAX_TAPS}")
+
+
+# ---------------------------------------------------------------------------
+# blur
+# ---------------------------------------------------------------------------
+
+def blur_plain(x: torch.Tensor, taps: Sequence[float]) -> torch.Tensor:
+    """Plain PyTorch version of blur: shifted weighted adds, kernel order."""
+    return blur_taps(x, taps)
+
+
+def blur(x: torch.Tensor, taps: Sequence[float]) -> torch.Tensor:
+    """Separable clamp-to-edge blur of (B, H, W) float32 with the given odd
+    tap vector (<= 33 taps)."""
+    _check_planes(x, "blur")
+    t = taps_f32(taps)
+    _check_taps(t, "blur")
+    if not x.is_cuda:
+        return blur_plain(x, t)
+    if not x.is_contiguous():
+        raise ValueError("blur: input must be contiguous")
+    out = torch.empty_like(x)
+    B, H, W = x.shape
+    with build.on_device_of(x):
+        err = _fn("hg_blur")(x.data_ptr(), out.data_ptr(), B, H, W,
+                             t.ctypes.data, len(t), build.stream_of(x))
+    build.check(err, "blur")
+    build.count_launch("blur")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# octave chain
+# ---------------------------------------------------------------------------
+
+def octave_chain_plain(base: torch.Tensor,
+                       taps_list: Sequence[Sequence[float]]) -> torch.Tensor:
+    """Plain PyTorch version of octave_chain: chained blur_plain."""
+    return octave_chain_taps(base, taps_list)
+
+
+def octave_chain(base: torch.Tensor,
+                 taps_list: Sequence[Sequence[float]]) -> torch.Tensor:
+    """Whole-octave Gaussian chain: level 0 = base, level l+1 = blur(level l,
+    taps_list[l]) with clamp-to-edge at every level (empty taps = identity).
+    base (B, H, W) float32 -> (B, 1 + len(taps_list), H, W); equals chained
+    blur() exactly."""
+    _check_planes(base, "octave_chain")
+    tl = [taps_f32(tp) for tp in taps_list]
+    for tp in tl:
+        if len(tp):
+            _check_taps(tp, "octave_chain")
+    if not base.is_cuda:
+        return octave_chain_plain(base, tl)
+    if not base.is_contiguous():
+        raise ValueError("octave_chain: input must be contiguous")
+    B, H, W = base.shape
+    L = 1 + len(tl)
+    flat = np.zeros((max(L - 1, 1), MAX_TAPS), np.float32)
+    ntaps = np.zeros(max(L - 1, 1), np.int32)
+    for l, tp in enumerate(tl):
+        flat[l, :len(tp)] = tp
+        ntaps[l] = len(tp)
+    out = torch.empty((B, L, H, W), dtype=torch.float32, device=base.device)
+    with build.on_device_of(base):
+        err = _fn("hg_octave_chain")(
+            base.data_ptr(), out.data_ptr(), B, L, H, W, flat.ctypes.data,
+            ntaps.ctypes.data, build.stream_of(base))
+    build.check(err, "octave_chain")
+    build.count_launch("octave_chain")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# decimation
+# ---------------------------------------------------------------------------
+
+def downsample2_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of downsample2: the strided slice, copied."""
+    return x[..., ::2, ::2].contiguous()
+
+
+def downsample2(x: torch.Tensor) -> torch.Tensor:
+    """Exact decimation by 2 (even rows/cols, ceil sizes for odd dims) of
+    (B, h, w) float32. The source may be a strided view with unit column
+    stride - e.g. plane [:, l] of a (B, L, H, W) stack is read in place."""
+    _check_planes(x, "downsample2")
+    if not x.is_cuda:
+        return downsample2_plain(x)
+    if x.stride(2) != 1:
+        raise ValueError("downsample2: columns must be contiguous")
+    B, h, w = x.shape
+    out = torch.empty((B, (h + 1) // 2, (w + 1) // 2), dtype=torch.float32,
+                      device=x.device)
+    with build.on_device_of(x):
+        err = _fn("hg_downsample2")(x.data_ptr(), out.data_ptr(), B, h, w,
+                                    x.stride(0), x.stride(1),
+                                    build.stream_of(x))
+    build.check(err, "downsample2")
+    build.count_launch("downsample2")
+    return out

@@ -1,0 +1,409 @@
+"""Detection pipeline: Gaussian pyramid -> fused detection -> per-octave
+compaction -> global table -> image coordinates (counterpart of
+hessgpu_tpu/pyramid.py).
+
+The batch dimension is written out: every stage takes (B, ...) tensors and
+run_pipeline is run_pipeline_batched at B = 1. On CUDA tensors the dense
+stages run the hand-written kernels (ops/cuda); on CPU tensors their plain
+PyTorch versions. Compaction and the table work are tensor code with
+static shapes.
+
+Ported so far: "detection only, upright" - SiftConfig(compute_descriptors=
+False, fixed_orientation=True), both detector personalities, all truncation
+modes. Orientation histograms, multi-orientation expansion and descriptors
+are the next slice; a config that asks for them raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from .config import (SiftConfig, TRUNCATE_KEEP_HIGHEST_LEVELS,
+                     TRUNCATE_KEEP_LOWEST_LEVELS, TRUNCATE_TOP_K)
+from .features import FeatureTable
+from .ops import gaussian
+from .ops.compaction import (FeatureList, compact_octave_keypoints,
+                             compact_sorted)
+from .ops.cuda import conv as kconv
+from .ops.cuda import detect as kdetect
+from .ops.resize import rgb_to_gray, to_float
+from .params import (gaussian_taps, max_features_per_level, octave_shapes,
+                     required_octaves)
+
+TWO_PI = 2.0 * math.pi
+
+
+class PipelinePlan(NamedTuple):
+    """Static shape plan for one (H, W) input size."""
+    height: int
+    width: int
+    num_octaves: int
+    octave_shapes: Tuple[Tuple[int, int], ...]
+    level_caps: Tuple[int, ...]          # per (octave, key_level) capacity
+    expanded_caps: Tuple[int, ...]       # after multi-orientation expansion
+
+
+def make_plan(height: int, width: int, cfg: SiftConfig) -> PipelinePlan:
+    """Static octave/capacity layout for an input size: octaves until the
+    smaller working dimension reaches min_dim (SiftPyramid.cpp:305-311),
+    capped by num_octaves if set."""
+    noct = required_octaves(min(height, width), cfg.min_dim)
+    if cfg.num_octaves > 0:
+        noct = min(noct, cfg.num_octaves)
+    shapes = octave_shapes(height, width, noct)
+    p = cfg.scale_params()
+
+    caps = []
+    ecaps = []
+    for (h, w) in shapes:
+        cap = max_features_per_level(h, w, cfg.max_feature_percent,
+                                     cfg.max_level_features)
+        ecap = (int(cap * 1.5) + 7) // 8 * 8
+        for _ in p.key_levels:
+            caps.append(cap)
+            ecaps.append(ecap)
+    return PipelinePlan(height, width, noct, tuple(shapes), tuple(caps),
+                        tuple(ecaps))
+
+
+def check_supported(cfg: SiftConfig) -> None:
+    """Raise NotImplementedError for what the port does not cover yet; it
+    never returns zero descriptors or theta = 0 for a config that asked for
+    real ones."""
+    missing = []
+    if not cfg.fixed_orientation:
+        missing.append("fixed_orientation=False (orientation histograms)")
+    if cfg.compute_descriptors:
+        missing.append("compute_descriptors=True (SIFT descriptors)")
+    if cfg.first_octave < 0:
+        missing.append("first_octave < 0 (upsampled first octave)")
+    if cfg.conv_mode != "chain":
+        missing.append(f"conv_mode={cfg.conv_mode!r}")
+    if missing:
+        raise NotImplementedError(
+            "hessgpu_tpu_torch does not port this yet (next slice: the "
+            "per-keypoint orientation and descriptor kernels): "
+            + "; ".join(missing) + ". Supported now: SiftConfig("
+            "compute_descriptors=False, fixed_orientation=True) [-sd -ofix]")
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. A CUDA device without a card
+    raises: nothing gives way to the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "hessgpu_tpu_torch: device='cuda' was asked for but "
+            "torch.cuda.is_available() is False; pass device='cpu' to run "
+            "the plain PyTorch versions")
+    return device
+
+
+# ---------------------------------------------------------------------------
+# stage helpers
+# ---------------------------------------------------------------------------
+
+def _build_pyramid(imgs: torch.Tensor, plan: PipelinePlan, cfg: SiftConfig,
+                   plain: bool = False) -> List[torch.Tensor]:
+    """Gaussian stacks (B, L, h, w) for every octave. imgs: (B, H, W) f32.
+
+    Reference: PyramidCU::BuildPyramid (PyramidCU.cpp:1486-1558): initial
+    blur, then per octave the incremental chain; the next octave's base is
+    the decimated level_ds plane (plus a restart blur in DoG mode).
+    plain=True calls the kernels' plain PyTorch versions instead."""
+    p = cfg.scale_params()
+    if plain:
+        blur_fn, chain_fn, down_fn = (kconv.blur_plain,
+                                      kconv.octave_chain_plain,
+                                      kconv.downsample2_plain)
+    else:
+        blur_fn, chain_fn, down_fn = (kconv.blur, kconv.octave_chain,
+                                      kconv.downsample2)
+
+    def blur(x, sigma):
+        if sigma <= 0:
+            return x
+        return blur_fn(x, gaussian_taps(sigma, p.filter_width_factor))
+
+    taps_list = gaussian.chain_taps(p)
+    octaves: List[torch.Tensor] = []
+    base = blur(imgs, p.initial_blur_sigma(cfg.first_octave))
+    lds = p.level_ds - p.level_min
+    for o in range(plan.num_octaves):
+        if o > 0:
+            base = down_fn(octaves[-1][:, lds])
+            # decimation keeps ceil(h/2) rows, the plan floor-halves like
+            # the reference (PyramidCU.cpp:150): crop so plan and tensors
+            # agree for odd-dimension octaves
+            oh, ow = plan.octave_shapes[o]
+            base = base[..., :oh, :ow].contiguous()
+            base = blur(base, p.octave_restart_sigma())
+        octaves.append(chain_fn(base, taps_list))
+    return octaves
+
+
+def _detect_norms(p, cfg: SiftConfig):
+    """Per-level response norms: sigma^4 for the Hessian personality
+    (the reference's octave term is deliberately disabled,
+    PyramidCU.cpp:1569-1589); unused (1.0) for DoG."""
+    if cfg.detector == "hessian":
+        return [(p.level_sigma(l) ** 4)
+                for l in range(p.level_min, p.level_max + 1)]
+    return [1.0] * p.num_levels
+
+
+def _detect_octave(gauss_oct: torch.Tensor, cfg: SiftConfig,
+                   plain: bool = False):
+    """Keypoint maps + gradient maps for one octave (B, L, h, w).
+
+    Returns (maps, grad_k, rot_k): KeypointMaps with (B, NK, h, w) leaves
+    (row i = key level p.key_levels[i]) and the per-key-level gradient
+    magnitude / angle maps (consumed by the orientation and descriptor
+    stages of the next slice)."""
+    p = cfg.scale_params()
+    fn = kdetect.detect_octave_plain if plain else kdetect.detect_octave
+    return fn(gauss_oct, _detect_norms(p, cfg), p.key_levels,
+              threshold=p.threshold, edge_threshold=p.edge_threshold,
+              subpixel=cfg.subpixel,
+              darkness_adaption=cfg.darkness_adaption,
+              detector=cfg.detector)
+
+
+class GlobalTable(NamedTuple):
+    """Cross-level compacted keypoint table (level coordinates), (B, G)."""
+    x: torch.Tensor
+    y: torch.Tensor
+    sigma: torch.Tensor
+    theta: torch.Tensor
+    response: torch.Tensor
+    ftype: torch.Tensor
+    level_id: torch.Tensor   # i32 flattened (octave * s + key_level - 1)
+    valid: torch.Tensor
+
+    def count(self) -> torch.Tensor:
+        return self.valid.sum(dim=-1, dtype=torch.int32)
+
+
+def _globalize(lists: List[FeatureList], cap: int) -> GlobalTable:
+    """Concatenate per-octave blocked lists ((B, NK, cap_o) leaves) and
+    compact into one global table, level-major (= the reference's output
+    order). Level ids per slot are static."""
+    def cat(field):
+        return torch.cat([getattr(fl, field).flatten(-2) for fl in lists],
+                         dim=-1)
+
+    lid_np = []
+    base = 0
+    for fl in lists:
+        nk, c = fl.valid.shape[-2:]
+        lid_np.append(np.repeat(base + np.arange(nk), c))
+        base += nk
+    valid = cat("valid")
+    lid = torch.as_tensor(np.concatenate(lid_np), dtype=torch.int32,
+                          device=valid.device).expand(valid.shape)
+    _, outs, slot_valid = compact_sorted(
+        valid,
+        [cat("x"), cat("y"), cat("sigma"), cat("response"), cat("ftype"),
+         lid],
+        cap,
+    )
+    x, y, s, r, ft, lid = outs
+    return GlobalTable(x=x, y=y, sigma=s, theta=torch.zeros_like(x),
+                       response=r, ftype=ft, level_id=lid, valid=slot_valid)
+
+
+def _recompact(table: GlobalTable, keep: torch.Tensor, cap: int) -> GlobalTable:
+    _, outs, slot_valid = compact_sorted(
+        keep & table.valid,
+        [table.x, table.y, table.sigma, table.theta, table.response,
+         table.ftype, table.level_id],
+        cap,
+    )
+    x, y, s, t, r, ft, lid = outs
+    return GlobalTable(x=x, y=y, sigma=s, theta=t, response=r, ftype=ft,
+                       level_id=lid, valid=slot_valid)
+
+
+def _topk_mask(table: GlobalTable, k: int) -> torch.Tensor:
+    """Selection mask for the k largest |response| (ties by global order).
+
+    Behavior-equivalent to PyramidCU::SelectTopK (PyramidCU.cpp:1881-1989)."""
+    absr = torch.where(table.valid, table.response.abs(),
+                       torch.full_like(table.response, -math.inf))
+    kk = min(k, absr.shape[-1])
+    vk = torch.topk(absr, kk, dim=-1).values[..., -1:]
+    above = absr > vk
+    n_above = above.sum(dim=-1, keepdim=True)
+    ties = absr == vk
+    tie_rank = torch.cumsum(ties, dim=-1)
+    return above | (ties & (tie_rank <= (kk - n_above)))
+
+
+def _level_trunc_mask(table: GlobalTable, k: int, num_levels: int,
+                      keep_lowest: bool) -> torch.Tensor:
+    """-tc1/-tc2 level-dropping masks (SiftPyramid.cpp:224-277)."""
+    lid = table.level_id.to(torch.int64)
+    counts = torch.zeros(lid.shape[:-1] + (num_levels,), dtype=torch.int64,
+                         device=lid.device)
+    counts.scatter_add_(-1, lid, table.valid.to(torch.int64))
+    before = torch.cumsum(counts, dim=-1) - counts
+    if keep_lowest:
+        keep_level = before < k
+    else:
+        suffix = counts.sum(dim=-1, keepdim=True) - before
+        keepable = suffix <= k
+        first_keep = torch.where(
+            keepable.any(dim=-1, keepdim=True),
+            keepable.to(torch.int64).argmax(dim=-1, keepdim=True),
+            num_levels - 1)
+        keep_level = torch.arange(num_levels, device=lid.device) >= first_keep
+    return torch.gather(keep_level, -1, lid)
+
+
+# ---------------------------------------------------------------------------
+# the pipeline
+# ---------------------------------------------------------------------------
+
+def run_pipeline_batched(imgs: torch.Tensor, plan: PipelinePlan,
+                         cfg: SiftConfig, plain: bool = False):
+    """Detection for a batch (B, H, W) of f32 [0, 1] frames, on the device
+    the tensor lies on.
+
+    Returns (FeatureTable with leading dim B in image coordinates -
+    reference download frame x_img = 2^octave * (x_level - 0.5) + offset,
+    PyramidCU.cpp:890-903 - and an aux dict with level_counts
+    (B, n_levels) and pre_count (B,), the counts before truncation).
+
+    plain=True runs the plain PyTorch versions of the kernels on whatever
+    device the tensor lies on (the yardstick of chip_smoke.py).
+    """
+    check_supported(cfg)
+    if imgs.ndim != 3 or imgs.dtype != torch.float32:
+        raise ValueError("run_pipeline_batched: expected (B, H, W) float32, "
+                         f"got {tuple(imgs.shape)} {imgs.dtype}")
+    if tuple(imgs.shape[1:]) != (plan.height, plan.width):
+        raise ValueError(f"images {tuple(imgs.shape[1:])} do not match the "
+                         f"plan ({plan.height}, {plan.width})")
+    # spans carry the reference's TIMINGS_* bucket names (config.h:17-31)
+    # into torch.profiler traces (scripts/torch_profile_main_path.py)
+    with record_function("BUILD_PYRAMID"):
+        octaves = _build_pyramid(imgs.contiguous(), plan, cfg, plain)
+    return pipeline_from_octaves(octaves, plan, cfg, plain)
+
+
+def pipeline_from_octaves(octaves: List[torch.Tensor], plan: PipelinePlan,
+                          cfg: SiftConfig, plain: bool = False):
+    """Everything after the pyramid: detection, compaction, global table,
+    truncation, image coordinates. octaves: one (B, L, h, w) Gaussian stack
+    per plan octave. Same result as run_pipeline_batched, which calls this;
+    tests also feed it the JAX package's pyramid."""
+    check_supported(cfg)
+    p = cfg.scale_params()
+    sigma_step = p.sigmak
+    s = p.num_scales
+    nkey = len(p.key_levels)
+    device = octaves[0].device
+
+    # ---- detection + per-octave compaction ----------------------------------
+    sigmas = torch.tensor([p.key_level_sigma(kl) for kl in p.key_levels],
+                          dtype=torch.float32, device=device)
+    all_lists: List[FeatureList] = []
+    for o, gauss_oct in enumerate(octaves):
+        with record_function("DETECT_KEYPOINTS"):
+            maps, _grad, _rot = _detect_octave(gauss_oct, cfg, plain)
+        with record_function("GENERATE_FEATURE_LIST"):
+            all_lists.append(compact_octave_keypoints(
+                maps, sigmas, sigma_step, plan.level_caps[o * nkey]))
+
+    # ---- global table ---------------------------------------------------------
+    # per-(octave, level) counts and the pre-reduction total for the -v
+    # report (reference PyramidCU.cpp:1327-1343, SiftPyramid.cpp:219-247)
+    G = min(cfg.global_feature_cap, sum(plan.level_caps))
+    with record_function("GENERATE_FEATURE_LIST"):
+        level_counts = torch.cat([fl.count() for fl in all_lists], dim=-1)
+        table = _globalize(all_lists, G)
+        pre_count = table.count()
+
+    # ---- truncation (reference LimitFeatureCount, SiftPyramid.cpp:201-278)
+    if cfg.feature_count_threshold > 0:
+        k = cfg.feature_count_threshold
+        nl = len(plan.level_caps)
+        with record_function("FEATURES_REDUCTION"):
+            if cfg.truncate_method == TRUNCATE_TOP_K:
+                keep = _topk_mask(table, k)
+            elif cfg.truncate_method == TRUNCATE_KEEP_LOWEST_LEVELS:
+                keep = _level_trunc_mask(table, k, nl, True)
+            elif cfg.truncate_method == TRUNCATE_KEEP_HIGHEST_LEVELS:
+                keep = _level_trunc_mask(table, k, nl, False)
+            else:
+                keep = table.valid
+            table = _recompact(table, keep, G)
+
+    # ---- upright, no descriptors ----------------------------------------------
+    theta = torch.zeros_like(table.theta)
+    desc = torch.zeros(table.x.shape + (cfg.descriptor_dim,),
+                       dtype=torch.float32, device=device)
+
+    # ---- convert to image coordinates -----------------------------------------
+    offset = 0.0 if cfg.lowe_origin else 0.5
+    octave_id = torch.div(table.level_id, s, rounding_mode="floor")
+    oss = torch.exp2(octave_id.to(torch.float32) + cfg.first_octave)
+
+    out = FeatureTable(
+        x=oss * (table.x - 0.5) + offset,
+        y=oss * (table.y - 0.5) + offset,
+        sigma=oss * table.sigma,
+        theta=torch.where(table.valid,
+                          torch.remainder(TWO_PI - theta, TWO_PI),
+                          torch.zeros_like(theta)),
+        response=table.response,
+        level=table.level_id,
+        ftype=table.ftype,
+        valid=table.valid,
+        desc=desc,
+    )
+    aux = {"level_counts": level_counts, "pre_count": pre_count}
+    return out, aux
+
+
+def run_pipeline(img: torch.Tensor, plan: PipelinePlan, cfg: SiftConfig,
+                 plain: bool = False):
+    """Detection for one grayscale image (H, W) f32 in [0, 1]: the batched
+    pipeline at B = 1 with the batch dimension stripped."""
+    table, aux = run_pipeline_batched(img[None], plan, cfg, plain)
+    return (FeatureTable(*(a[0] for a in table)),
+            {k: v[0] for k, v in aux.items()})
+
+
+def prepare_input(img_np: np.ndarray, cfg: SiftConfig, device="cuda"):
+    """Normalize the input and compute the static plan: returns
+    (arr (H, W) f32 on `device`, plan, cfg) - the arguments of
+    run_pipeline. cfg comes back with first_octave clamped for the Hessian
+    personality (reference SiftGPU.cpp:1166-1170)."""
+    device = resolve_device(device)
+    if cfg.detector == "hessian" and cfg.first_octave < 0:
+        cfg = dataclasses.replace(cfg, first_octave=0)
+    check_supported(cfg)
+    arr = to_float(torch.as_tensor(np.ascontiguousarray(img_np)).to(device))
+    if arr.ndim == 3:
+        arr = rgb_to_gray(arr)
+    if cfg.first_octave > 0:
+        # reference: SampleImageD of the input before octave 0
+        step = 1 << cfg.first_octave
+        arr = arr[::step, ::step]
+    h, w = arr.shape
+    return arr.contiguous(), make_plan(h, w, cfg), cfg
+
+
+def detect_and_describe(img_np: np.ndarray, cfg: SiftConfig, device="cuda"):
+    """Host entry: NumPy image (H, W) or (H, W, C), uint8 or float.
+
+    Returns (FeatureTable, aux) on `device` - see run_pipeline_batched."""
+    arr, plan, cfg = prepare_input(img_np, cfg, device)
+    return run_pipeline(arr, plan, cfg)
