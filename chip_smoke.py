@@ -9,15 +9,19 @@ there is no device, and on any failed phase. Phases, one JSON line each:
 
   device     the card (name and power limit as nvidia-smi gives them)
   build      seconds to build the kernel library
-  kernels    each of the four kernels against its plain PyTorch version on
+  kernels    each of the six kernels against its plain PyTorch version on
              the card, at every shape the main path gives it (640x480, B=16,
-             five octaves) plus an odd shape, Hessian and DoG; timings by
-             CUDA events (warm-up, then the median of REPS launches, the L2
-             cache flushed before each)
+             five octaves; keypoint tables 16 x 2048 and 16 x 3072) plus an
+             odd and a tiny shape, Hessian and DoG; timings by CUDA events
+             (warm-up, then the median of REPS launches, the L2 cache
+             flushed before each)
   main_path  detect_batch on 16 seeded 640x480 textures, through the
              kernels (launch counts read), against the same batch through
              the plain versions on the card, frame 0 against its pinned
-             counts and against a CPU run; then the DoG personality
+             counts and against a CPU run; Hessian then DoG, first in the
+             detection-only upright configuration (-sd -ofix), then in the
+             default configuration (orientations, descriptors)
+  describe   describe_keypoints on the card fed frame 0's own keypoints
   {"kernels": [...]}   one entry per kernel: launches on the main path,
              error, times, bound
   <name>, <power limit>
@@ -36,6 +40,25 @@ import time
 # constants against the JAX package on the CPU.
 FRAME0_KEYPOINTS = 139
 FRAME0_LEVEL_COUNTS = [22, 18, 19, 19, 22, 22, 13, 3, 1, 0, 0, 0, 0, 0, 0]
+# The same frame under the default SiftConfig() (up to 2 orientations per
+# keypoint, descriptors): features after the expansion, total and per level.
+# tests/test_torch_pipeline_default.py asserts them against the JAX package.
+FRAME0_FEATURES = 210
+FRAME0_FEATURE_LEVELS = [35, 31, 26, 31, 30, 32, 20, 3, 2, 0, 0, 0, 0, 0, 0]
+
+# Kernel against plain version, per-keypoint stages: sums of 10^2..10^4 terms
+# in another order, so smoothed votes and raw descriptor entries agree to
+# VOTE_TOL of the keypoint's largest entry (1e-6 * sqrt(N)); descriptors
+# after normalization to DESC_TOL absolute.
+VOTE_TOL = 2e-5
+DESC_TOL = 2e-6
+# Float operations per contributing pixel, counted in csrc/patch.cu:
+# orientation - offsets 4, distance 3, cut 1, bin 2, weight 14 (expf ~12),
+# add 1; descriptor - offsets 4, rotation 6, cell coordinates and support 6,
+# Gaussian 16, bin and fraction 5, then 2 x 2 cell weights 12, 2 bin shares
+# 3, 8 entries x (multiply, multiply-add) 23.
+ORI_FLOPS_PER_PIXEL = 25
+DESC_FLOPS_PER_PIXEL = 75
 
 BATCH = 16
 HEIGHT, WIDTH = 480, 640
@@ -43,7 +66,9 @@ REPS = 10
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12       # float32 outside the tensor cores
 EXPECTED_LAUNCHES = {"blur": 1, "octave_chain": 5, "downsample2": 4,
-                     "detect_octave": 5}
+                     "detect_octave": 5, "orientation": 0, "descriptor": 0}
+EXPECTED_LAUNCHES_DEFAULT = dict(EXPECTED_LAUNCHES, orientation=1,
+                                 descriptor=1)
 KERNEL_INFO = {
     "blur": ("hessgpu_tpu_torch/csrc/conv.cu",
              "hessgpu_tpu/ops/pallas/conv.py:381"),
@@ -53,6 +78,10 @@ KERNEL_INFO = {
                     "hessgpu_tpu/ops/pallas/conv.py:494"),
     "detect_octave": ("hessgpu_tpu_torch/csrc/detect.cu",
                       "hessgpu_tpu/ops/pallas/detect.py:550"),
+    "orientation": ("hessgpu_tpu_torch/csrc/patch.cu",
+                    "hessgpu_tpu/ops/pallas/patch.py:893"),
+    "descriptor": ("hessgpu_tpu_torch/csrc/patch.cu",
+                   "hessgpu_tpu/ops/pallas/patch.py:584"),
 }
 
 
@@ -75,12 +104,17 @@ def main():
 
     import numpy as np
 
-    from hessgpu_tpu_torch import SiftConfig, detect_batch, make_plan
+    from hessgpu_tpu_torch import (SiftConfig, describe_keypoints,
+                                   detect_batch, make_plan, to_numpy_trimmed)
     from hessgpu_tpu_torch import pyramid as tpyr
+    from hessgpu_tpu_torch.features import FeatureTable
     from hessgpu_tpu_torch.ops import gaussian
     from hessgpu_tpu_torch.ops.cuda import (build, conv, detect,
-                                            launch_counts,
+                                            launch_counts, patch,
                                             reset_launch_counts)
+    from hessgpu_tpu_torch.ops.descriptor import (compute_descriptors_flat,
+                                                  finalize_descriptors)
+    from hessgpu_tpu_torch.ops.orientation import peaks_from_votes
     from hessgpu_tpu_torch.params import gaussian_taps
     from hessgpu_tpu_torch.sfm.synthetic import texture_frame
 
@@ -245,6 +279,153 @@ def main():
         fail(f"degenerate kernel check: {keys_h} Hessian / {keys_d} DoG "
              "keypoints")
 
+    # ---- per-keypoint kernels: correctness ----------------------------------
+    ori_stats = {"cases": 0, "keypoints": 0, "differing_keypoints": 0,
+                 "votes_max_rel_err": 0.0}
+    desc_stats = {"cases": 0, "keypoints": 0, "raw_max_rel_err": 0.0,
+                  "normalized_max_abs_err": 0.0, "norm_max_abs_err": 0.0}
+
+    def keypoint_scene(x, cfg):
+        """Table, maps and window sizes as the pipeline hands them to the
+        per-keypoint stages for the batch x."""
+        plan = make_plan(x.shape[1], x.shape[2], cfg)
+        table, maps, _ = tpyr.detect_from_octaves(
+            tpyr._build_pyramid(x, plan, cfg), plan, cfg)
+        p = cfg.scale_params()
+        owin, dwin = tpyr.window_sizes(
+            cfg, p.key_level_sigma(p.key_levels[-1]) * p.sigmak)
+        return table, maps, owin, dwin
+
+    def check_orientation(t, maps, owin, **mode):
+        """The orientation kernel against its plain version on one table.
+        Returns (kernel result, plain result, (B, G) mask of the keypoints
+        whose orientations differ between the two)."""
+        args = (t.x, t.y, t.sigma, t.valid, t.level_id, maps, owin)
+        got = patch.orientation(*args, return_votes=True, **mode)
+        again = patch.orientation(*args, return_votes=True, **mode)
+        want = patch.orientation_plain(*args, **mode)
+        torch.cuda.synchronize()
+        what = f"orientation {mode} at {tuple(t.x.shape)}"
+        for f in ("thetas", "valid", "votes"):
+            if not same(getattr(got, f), getattr(again, f)):
+                fail(f"{what}: {f} differs between two runs of the kernel")
+        inv = ~t.valid
+        if bool(got.thetas[inv].any()) or bool(got.valid[inv].any()) \
+                or bool(got.votes[inv].any()):
+            fail(f"{what}: a slot that is not valid is not zero")
+        scale = want.votes.amax(-1, keepdim=True).clamp_min(1e-30)
+        rel = float(((got.votes - want.votes).abs() / scale).max())
+        if rel > VOTE_TOL:
+            fail(f"{what}: votes {rel} away from the plain version's, "
+                 f"relative to the keypoint's largest; limit {VOTE_TOL}")
+        # Orientations are discrete, so a histogram inside its tolerance can
+        # still put a peak on the other side of 0.8 * max, swap two peaks or
+        # move floor(frac * 255) by one. The plain peak picker on the
+        # kernel's own histograms must give the kernel's orientations bit
+        # for bit: then a keypoint that differs between the two routes
+        # differs through its histogram alone, which is within VOTE_TOL.
+        max_peaks = mode.get("max_peaks", 4)
+        single = bool(mode.get("single")) or max_peaks <= 1
+        th, ov = peaks_from_votes(got.votes, single=single,
+                                  max_peaks=max_peaks)
+        th = th.masked_fill(inv[..., None], 0.0)
+        ov = ov & t.valid[..., None]
+        if not (same(th, got.thetas) and same(ov, got.valid)):
+            fail(f"{what}: the plain peak picking on the kernel's histograms "
+                 "does not reproduce the kernel's orientations")
+        if single:   # full-precision theta: 1e-4 rad is far below a quantum
+            differing = ((got.thetas - want.thetas).abs() > 1e-4).any(-1)
+        else:
+            differing = ((got.valid != want.valid)
+                         | (got.thetas != want.thetas)).any(-1)
+        ori_stats["cases"] += 1
+        ori_stats["keypoints"] += int(t.valid.sum())
+        ori_stats["differing_keypoints"] += int(differing.sum())
+        ori_stats["votes_max_rel_err"] = max(ori_stats["votes_max_rel_err"],
+                                             rel)
+        errs["orientation"] = max(errs["orientation"],
+                                  max_abs(got.votes, want.votes))
+        checked["orientation"] += 1
+        return got, want, differing
+
+    def check_descriptor(t, maps, dwin):
+        """The descriptor kernel against its plain version on one table with
+        device-frame theta. Returns the plain version's count of contributing
+        pixels per slot."""
+        args = (t.x, t.y, t.sigma, t.theta, t.valid, t.level_id, maps, dwin)
+        got = patch.descriptor(*args)
+        again = patch.descriptor(*args)
+        want, support = compute_descriptors_flat(*args)
+        torch.cuda.synchronize()
+        what = f"descriptor at {tuple(t.x.shape)}"
+        if not same(got, again):
+            fail(f"{what}: two runs of the kernel differ")
+        if bool(got[~t.valid].any()):
+            fail(f"{what}: a slot that is not valid is not zero")
+        scale = want.abs().amax((-2, -1), keepdim=True).clamp_min(1e-30)
+        rel = float(((got - want).abs() / scale).max())
+        if rel > VOTE_TOL:
+            fail(f"{what}: raw entries {rel} away from the plain version's, "
+                 f"relative to the keypoint's largest; limit {VOTE_TOL}")
+        for half in (False, True):
+            a = finalize_descriptors(got, t.valid, half, True)
+            b = finalize_descriptors(want, t.valid, half, True)
+            d = max_abs(a, b)
+            desc_stats["normalized_max_abs_err"] = max(
+                desc_stats["normalized_max_abs_err"], d)
+            if d > DESC_TOL:
+                fail(f"{what}: normalized descriptors {d} apart (half_sift="
+                     f"{half}); limit {DESC_TOL}")
+            some = t.valid & (got != 0).flatten(-2).any(-1)
+            nerr = float((a[some].norm(dim=-1) - 1).abs().max())
+            desc_stats["norm_max_abs_err"] = max(
+                desc_stats["norm_max_abs_err"], nerr)
+            if nerr > 1e-5:
+                fail(f"{what}: a descriptor's norm is {nerr} from 1")
+        desc_stats["cases"] += 1
+        desc_stats["keypoints"] += int(t.valid.sum())
+        desc_stats["raw_max_rel_err"] = max(desc_stats["raw_max_rel_err"], rel)
+        errs["descriptor"] = max(errs["descriptor"], max_abs(got, want))
+        checked["descriptor"] += 1
+        return support
+
+    # the real tables and maps of the seeded batch, in the default mode (up
+    # to 2 orientations), then the expanded table through the descriptor
+    cfg_def = {"hessian": SiftConfig(), "dog": SiftConfig(detector="dog")}
+    scenes, differing_frames = {}, {}
+    for det, cfg in cfg_def.items():
+        t, maps, owin, dwin = keypoint_scene(imgs, cfg)
+        got, want, differing = check_orientation(
+            t, maps, owin, max_peaks=cfg.max_orientations)
+        differing_frames[det] = differing.any(-1)
+        g_exp = int(t.x.shape[-1] * cfg.expansion_factor + 7) // 8 * 8
+        te = tpyr._expand_orientations(t, got.thetas, got.valid, g_exp)
+        scenes[det] = dict(table=t, maps=maps, owin=owin, dwin=dwin,
+                           expanded=te, ori_support=want.support,
+                           desc_support=check_descriptor(te, maps, dwin))
+    ori_modes = [dict(single=True), dict(max_peaks=1), dict(max_peaks=2),
+                 dict(max_peaks=3), dict(max_peaks=4),
+                 dict(max_peaks=2, half_sift=True),
+                 dict(single=True, half_sift=True)]
+    sc = scenes["hessian"]
+    for mode in ori_modes:
+        check_orientation(sc["table"], sc["maps"], sc["owin"], **mode)
+    # an odd-shaped and a tiny batch (a lower threshold, so that the small
+    # frames have keypoints), every mode, both personalities
+    for shape in ((2, 101, 75), (3, 30, 40)):
+        x = torch.from_numpy(np.stack(
+            [texture_frame(seed, *shape[1:]) for seed in range(shape[0])]
+        )).to(dev)
+        for det in ("hessian", "dog"):
+            cfg = SiftConfig(detector=det, threshold=0.002)
+            t, maps, owin, dwin = keypoint_scene(x, cfg)
+            if int(t.valid.sum()) < 3:
+                fail(f"degenerate per-keypoint check at {shape} ({det})")
+            for mode in ori_modes:
+                got, _, _ = check_orientation(t, maps, owin, **mode)
+            check_descriptor(
+                t._replace(theta=got.thetas[..., 0].contiguous()), maps, dwin)
+
     # ---- kernels: time, at every shape the main path gives them ------------
     p = cfg_h.scale_params()
     plan = make_plan(HEIGHT, WIDTH, cfg_h)
@@ -327,11 +508,48 @@ def main():
         # 170 per key level and pixel (27-neighbour test, edge test, 3x3
         # solve, typing, gradient)
         bound=bound(n0 * (4 * L + 29 * NK), n0 * (13 * L + 170 * NK)))
+    # the per-keypoint kernels at the main path's tables. Bound: each valid
+    # keypoint's contributing pixels read once from both maps, the table read
+    # once, the outputs written once; operations per contributing pixel as
+    # counted in the kernels.
+    def sum_int(a):
+        return int(a.sum(dtype=torch.int64))
+
+    t, maps, te = sc["table"], sc["maps"], sc["expanded"]
+    ori_args = (t.x, t.y, t.sigma, t.valid, t.level_id, maps, sc["owin"])
+    ori_kw = dict(max_peaks=cfg_def["hessian"].max_orientations)
+    n_ori, px_ori = t.x.numel(), sum_int(sc["ori_support"])
+    timing["orientation"] = dict(
+        shape=list(t.x.shape),
+        ms=time_ms(lambda: patch.orientation(*ori_args, **ori_kw)),
+        plain_ms=time_ms(lambda: patch.orientation_plain(*ori_args, **ori_kw),
+                         reps=3),
+        library_ms=None, valid_keypoints=sum_int(t.valid),
+        support_pixels=px_ori,
+        bound=bound(8 * px_ori + n_ori * (17 + 20),
+                    ORI_FLOPS_PER_PIXEL * px_ori))
+    desc_args = (te.x, te.y, te.sigma, te.theta, te.valid, te.level_id, maps,
+                 sc["dwin"])
+    n_desc, px_desc = te.x.numel(), sum_int(sc["desc_support"])
+    timing["descriptor"] = dict(
+        shape=list(te.x.shape),
+        ms=time_ms(lambda: patch.descriptor(*desc_args)),
+        plain_ms=time_ms(lambda: patch.descriptor_plain(*desc_args), reps=3),
+        library_ms=None, valid_keypoints=sum_int(te.valid),
+        support_pixels=px_desc,
+        bound=bound(8 * px_desc + n_desc * (21 + 512),
+                    DESC_FLOPS_PER_PIXEL * px_desc))
+    for name in ("orientation", "descriptor"):
+        timing[name]["path_ms"] = timing[name]["ms"]
     emit("kernels",
          max_abs_err=errs, detect=detect_errs,
          exact=["blur", "octave_chain", "downsample2",
                 "detect_octave: valid ftype response dx dy ds"],
-         tolerances={"grad_rel": 1e-6, "rot_abs": 2e-6},
+         tolerances={"grad_rel": 1e-6, "rot_abs": 2e-6,
+                     "votes_and_raw_descriptor_rel": VOTE_TOL,
+                     "normalized_descriptor_abs": DESC_TOL},
+         orientation=ori_stats, descriptor=desc_stats,
+         deterministic=["orientation", "descriptor"],
          keypoints_checked={"hessian": keys_h, "dog": keys_d},
          shapes_checked=checked,
          timing_ms={k: {kk: vv for kk, vv in v.items() if kk != "bound"}
@@ -348,7 +566,7 @@ def main():
         torch.cuda.synchronize()
         launches = launch_counts()
         for name, n in launches.items():
-            if n == 0:
+            if n == 0 and EXPECTED_LAUNCHES[name]:
                 fail(f"main path ({cfg.detector}) never launched {name}")
         if launches != EXPECTED_LAUNCHES:
             fail(f"launch counts {launches} != {EXPECTED_LAUNCHES}")
@@ -401,8 +619,10 @@ def main():
         torch.cuda.synchronize()
         iters.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
-    kernel_path_ms = sum(t["path_ms"] for t in timing.values())
-    emit("main_path", detector="hessian", batch=BATCH, height=HEIGHT,
+    kernel_path_ms = sum(t["path_ms"] for name, t in timing.items()
+                         if EXPECTED_LAUNCHES[name])
+    emit("main_path", config="-sd -ofix", detector="hessian", batch=BATCH,
+         height=HEIGHT,
          width=WIDTH, launches=launches_h, keypoints=counts_h,
          frame0_keypoints=counts_h[0], equals_plain=True,
          frame0_equals_cpu=True,
@@ -412,8 +632,163 @@ def main():
          max_memory_allocated=peak, input_seconds=round(input_seconds, 3))
 
     launches_d, counts_d = run_main(cfg_d, pinned=False)
-    emit("main_path", detector="dog", batch=BATCH, launches=launches_d,
-         keypoints=counts_d, equals_plain=True)
+    emit("main_path", config="-sd -ofix", detector="dog", batch=BATCH,
+         launches=launches_d, keypoints=counts_d, equals_plain=True)
+
+    # ---- main path, default configuration ------------------------------------
+    quantum = 2.0 * np.pi / 255.0
+
+    def circ(a, b):
+        d = (a - b).abs() % (2.0 * np.pi)
+        return torch.minimum(d, 2.0 * np.pi - d)
+
+    def run_main_default(cfg, pinned):
+        reset_launch_counts()
+        table = detect_batch(imgs, cfg)              # device defaults to cuda
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        for name, n in launches.items():
+            if n == 0:
+                fail(f"default main path ({cfg.detector}) never launched "
+                     f"{name}")
+        if launches != EXPECTED_LAUNCHES_DEFAULT:
+            fail(f"launch counts {launches} != {EXPECTED_LAUNCHES_DEFAULT}")
+        plain = detect_batch(imgs, cfg, plain=True)  # plain versions, on the card
+        torch.cuda.synchronize()
+        if launch_counts() != launches:
+            fail("the plain run launched a kernel")
+        G = min(cfg.global_feature_cap, sum(plan.level_caps))
+        g_exp = int(G * cfg.expansion_factor + 7) // 8 * 8
+        for f, a in table_fields(table).items():
+            want_shape = (BATCH, g_exp) + ((128,) if f == "desc" else ())
+            if tuple(a.shape) != want_shape:
+                fail(f"{f}: shape {tuple(a.shape)} != {want_shape}")
+            if a.is_floating_point() and not bool(torch.isfinite(a).all()):
+                fail(f"{f}: non-finite values")
+        # Both runs feed bit-equal tables to the orientation stage (checked
+        # above, field for field), so the keypoints whose orientations differ
+        # between kernel and plain version are those the kernels phase found
+        # and explained. A frame that holds one has its later slots shifted;
+        # every other frame must agree slot for slot.
+        ok = ~differing_frames[cfg.detector]
+        for f in ("valid", "level", "ftype", "x", "y", "sigma", "response",
+                  "theta"):
+            if not same(getattr(table, f)[ok], getattr(plain, f)[ok]):
+                fail(f"default main path ({cfg.detector}): {f} differs "
+                     "between the kernels and the plain versions")
+        desc_err = max_abs(table.desc[ok], plain.desc[ok])
+        if desc_err > DESC_TOL:
+            fail(f"default main path ({cfg.detector}): descriptors "
+                 f"{desc_err} apart; limit {DESC_TOL}")
+        norm_err = float((table.desc[table.valid].norm(dim=-1) - 1)
+                         .abs().max())
+        if norm_err > 1e-5:
+            fail(f"a valid descriptor's norm is {norm_err} from 1")
+        if bool(table.desc[~table.valid].any()) \
+                or bool(table.theta[~table.valid].any()):
+            fail("a slot that is not valid is not zero")
+        counts = table.count().tolist()
+        report = dict(launches=launches, features=counts,
+                      frames_with_differing_orientations=int((~ok).sum()),
+                      desc_max_abs_err=desc_err, norm_max_abs_err=norm_err)
+        if pinned:
+            lv = table.level[0][table.valid[0]].cpu().numpy()
+            levels = np.bincount(lv, minlength=len(plan.level_caps)).tolist()
+            if counts[0] != FRAME0_FEATURES or levels != FRAME0_FEATURE_LEVELS:
+                fail(f"frame 0: {counts[0]} features, per level {levels}; "
+                     f"pinned {FRAME0_FEATURES}, {FRAME0_FEATURE_LEVELS}")
+            # The same frame on the CPU (plain versions). exp, atan2 and the
+            # sums differ in the last bits between the devices: positions
+            # are exact, sigma 1e-6 relative; an orientation may land one
+            # 2pi/255 quantum away on at most 1% of the features, and the
+            # descriptors of the others agree to 1e-5.
+            cpu = detect_batch(frames[:1], cfg, device="cpu")
+            for f in ("valid", "level", "ftype", "response", "x", "y"):
+                if not same(getattr(table, f)[:1].cpu(), getattr(cpu, f)):
+                    fail(f"frame 0: {f} differs between the card and the CPU")
+            if not torch.allclose(table.sigma[:1].cpu(), cpu.sigma,
+                                  rtol=1e-6, atol=0):
+                fail("frame 0: sigma differs between the card and the CPU")
+            dth = circ(table.theta[:1].cpu(), cpu.theta)
+            moved = dth > 1e-6
+            if float(dth.max()) > quantum + 1e-6 \
+                    or int(moved.sum()) > counts[0] // 100:
+                fail(f"frame 0: theta differs between the card and the CPU "
+                     f"on {int(moved.sum())} features, by up to "
+                     f"{float(dth.max())}")
+            cpu_err = max_abs(table.desc[:1].cpu()[~moved], cpu.desc[~moved])
+            if cpu_err > 1e-5:
+                fail(f"frame 0: descriptors {cpu_err} apart between the card "
+                     "and the CPU")
+            report.update(frame0_features=counts[0],
+                          frame0_theta_moved_vs_cpu=int(moved.sum()),
+                          frame0_desc_max_abs_err_vs_cpu=cpu_err)
+        return table, report
+
+    table_def, report_h = run_main_default(cfg_def["hessian"], pinned=True)
+    launches_def = report_h["launches"]
+    torch.cuda.reset_peak_memory_stats()
+    iters = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        detect_batch(imgs, cfg_def["hessian"])
+        torch.cuda.synchronize()
+        iters.append(time.perf_counter() - t0)
+    emit("main_path", config="default", detector="hessian", batch=BATCH,
+         height=HEIGHT, width=WIDTH, **report_h,
+         batch_seconds=iters, frames_per_s_best=BATCH / min(iters),
+         frames_per_s_median=BATCH / statistics.median(iters),
+         kernels_ms_per_batch=sum(t["path_ms"] for t in timing.values()),
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    _, report_d = run_main_default(cfg_def["dog"], pinned=False)
+    emit("main_path", config="default", detector="dog", batch=BATCH,
+         **report_d)
+
+    # ---- keypoint re-entry ---------------------------------------------------
+    # describe_keypoints on the card, fed frame 0's own keypoints. It bins a
+    # keypoint to a level by its scale, which is not always the level it was
+    # detected on (the subpixel step moves sigma); where it is, (a) without
+    # theta its full-precision strongest orientation lies within one 2pi/255
+    # quantum of the pipeline's first, quantized one, and the descriptors,
+    # taken a fraction of a quantum apart, within 0.05; (b) given the
+    # pipeline's theta the descriptors agree to 1e-5 on at least 99% of the
+    # keypoints (a pixel whose angle sits on a bin edge can move a whole
+    # vote: 0.02 at most).
+    from hessgpu_tpu_torch.describe import _bin_by_scale
+    f0 = to_numpy_trimmed(FeatureTable(*(a[0] for a in table_def)))
+    keys = np.stack([f0["x"], f0["y"], f0["sigma"], f0["theta"]], axis=1)
+    first = np.ones(len(keys), bool)        # first orientation per keypoint
+    first[1:] = (keys[1:, :3] != keys[:-1, :3]).any(axis=1)
+    binned, _ = _bin_by_scale(f0["sigma"], plan.num_octaves,
+                              cfg_def["hessian"])
+    level_kept = binned == f0["level"]
+    reset_launch_counts()
+    no_theta = describe_keypoints(frames[0], keys[first, :3],
+                                  has_orientation=False)
+    with_theta = describe_keypoints(frames[0], keys)
+    describe_launches = launch_counts()
+    if describe_launches["orientation"] != 1 \
+            or describe_launches["descriptor"] != 2:
+        fail(f"describe_keypoints launches: {describe_launches}")
+    sel = level_kept[first]
+    dth = np.abs(np.mod(no_theta["theta"] - f0["theta"][first] + np.pi,
+                        2 * np.pi) - np.pi)[sel]
+    dd = np.abs(no_theta["desc"] - f0["desc"][first]).max(axis=1)[sel]
+    dd4 = np.abs(with_theta["desc"] - f0["desc"]).max(axis=1)[level_kept]
+    if sel.mean() < 0.8 or dth.max() > quantum + 1e-5 or dd.max() > 0.05 \
+            or (dd4 <= 1e-5).mean() < 0.99 or dd4.max() > 0.02 \
+            or not np.isfinite(no_theta["desc"]).all() \
+            or not np.isfinite(with_theta["desc"]).all():
+        fail(f"describe_keypoints vs the pipeline on frame 0: level kept "
+             f"{sel.mean()}, theta {dth.max()}, desc {dd.max()}, with theta "
+             f"{dd4.max()} ({(dd4 <= 1e-5).mean()} within 1e-5)")
+    emit("describe", keypoints=int(first.sum()), features=len(keys),
+         level_kept_share=float(level_kept.mean()),
+         theta_max_abs_diff=float(dth.max()), quantum=quantum,
+         desc_max_abs_diff_without_theta=float(dd.max()),
+         desc_max_abs_diff_with_theta=float(dd4.max()),
+         share_within_1e_5_with_theta=float((dd4 <= 1e-5).mean()),
+         launches=describe_launches)
 
     # ---- result -------------------------------------------------------------
     kernels = []
@@ -421,7 +796,7 @@ def main():
         t = timing[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches_h[name],
+            "replaces": replaces, "launches": launches_def[name],
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],

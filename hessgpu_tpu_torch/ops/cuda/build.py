@@ -38,7 +38,8 @@ build_seconds: Optional[float] = None   # wall time of the build, if one ran
 
 # launches per kernel; a wrapper adds one where it launches, nowhere else
 _launches: Dict[str, int] = {
-    "blur": 0, "octave_chain": 0, "downsample2": 0, "detect_octave": 0}
+    "blur": 0, "octave_chain": 0, "downsample2": 0, "detect_octave": 0,
+    "orientation": 0, "descriptor": 0}
 
 
 def count_launch(name: str) -> None:

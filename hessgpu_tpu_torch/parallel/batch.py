@@ -1,4 +1,4 @@
-"""Batched detection (counterpart of hessgpu_tpu/parallel/batch.py).
+"""Batched detect + describe (counterpart of hessgpu_tpu/parallel/batch.py).
 
 One device: the whole batch rides the kernels' batch dimension. Sharding a
 batch over several GPUs (the JAX package's mesh= argument) is not ported
@@ -19,13 +19,16 @@ from ..pyramid import make_plan, resolve_device, run_pipeline_batched
 
 def detect_batch(images, cfg: Optional[SiftConfig] = None,
                  device="cuda", plain: bool = False) -> FeatureTable:
-    """Detect keypoints in a batch of same-sized grayscale images.
+    """Detect and describe keypoints in a batch of same-sized grayscale
+    images.
 
     images: (B, H, W) float32 in [0, 1], a NumPy array or a tensor (moved to
     `device` if it lies elsewhere). device="cuda" without a card raises.
     plain=True runs the kernels' plain PyTorch versions instead (a check,
     not a fallback).
-    Returns a batched FeatureTable (leading dim B) on `device`.
+    Returns a batched FeatureTable (leading dim B) on `device`: N slots per
+    frame, N = global_feature_cap, or expansion_factor times that when a
+    keypoint may get several orientations; desc (B, N, descriptor_dim).
     """
     cfg = cfg or SiftConfig()
     device = resolve_device(device)

@@ -1,17 +1,17 @@
-"""Detection pipeline: Gaussian pyramid -> fused detection -> per-octave
-compaction -> global table -> image coordinates (counterpart of
+"""Detect + describe pipeline: Gaussian pyramid -> fused detection ->
+per-octave compaction -> global table -> orientations -> multi-orientation
+expansion -> descriptors -> image coordinates (counterpart of
 hessgpu_tpu/pyramid.py).
 
 The batch dimension is written out: every stage takes (B, ...) tensors and
 run_pipeline is run_pipeline_batched at B = 1. On CUDA tensors the dense
-stages run the hand-written kernels (ops/cuda); on CPU tensors their plain
-PyTorch versions. Compaction and the table work are tensor code with
-static shapes.
+and the per-keypoint stages run the hand-written kernels (ops/cuda); on CPU
+tensors their plain PyTorch versions. Compaction and the table work are
+tensor code with static shapes.
 
-Ported so far: "detection only, upright" - SiftConfig(compute_descriptors=
-False, fixed_orientation=True), both detector personalities, all truncation
-modes. Orientation histograms, multi-orientation expansion and descriptors
-are the next slice; a config that asks for them raises NotImplementedError.
+Every SiftConfig runs, both detector personalities, except first_octave < 0
+(the DoG personality's upsampled octave) and conv_mode != "chain", which
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,6 +32,10 @@ from .ops.compaction import (FeatureList, compact_octave_keypoints,
                              compact_sorted)
 from .ops.cuda import conv as kconv
 from .ops.cuda import detect as kdetect
+from .ops.cuda import patch as kpatch
+from .ops.descriptor import descriptor_window_size, finalize_descriptors
+from .ops.gather import LevelMaps
+from .ops.hessian import _grad_rot
 from .ops.resize import rgb_to_gray, to_float
 from .params import (gaussian_taps, max_features_per_level, octave_shapes,
                      required_octaves)
@@ -77,20 +81,14 @@ def check_supported(cfg: SiftConfig) -> None:
     never returns zero descriptors or theta = 0 for a config that asked for
     real ones."""
     missing = []
-    if not cfg.fixed_orientation:
-        missing.append("fixed_orientation=False (orientation histograms)")
-    if cfg.compute_descriptors:
-        missing.append("compute_descriptors=True (SIFT descriptors)")
     if cfg.first_octave < 0:
         missing.append("first_octave < 0 (upsampled first octave)")
     if cfg.conv_mode != "chain":
         missing.append(f"conv_mode={cfg.conv_mode!r}")
     if missing:
         raise NotImplementedError(
-            "hessgpu_tpu_torch does not port this yet (next slice: the "
-            "per-keypoint orientation and descriptor kernels): "
-            + "; ".join(missing) + ". Supported now: SiftConfig("
-            "compute_descriptors=False, fixed_orientation=True) [-sd -ofix]")
+            "hessgpu_tpu_torch does not port this yet: "
+            + "; ".join(missing))
 
 
 def resolve_device(device) -> torch.device:
@@ -165,7 +163,7 @@ def _detect_octave(gauss_oct: torch.Tensor, cfg: SiftConfig,
     Returns (maps, grad_k, rot_k): KeypointMaps with (B, NK, h, w) leaves
     (row i = key level p.key_levels[i]) and the per-key-level gradient
     magnitude / angle maps (consumed by the orientation and descriptor
-    stages of the next slice)."""
+    stages)."""
     p = cfg.scale_params()
     fn = kdetect.detect_octave_plain if plain else kdetect.detect_octave
     return fn(gauss_oct, _detect_norms(p, cfg), p.key_levels,
@@ -266,14 +264,84 @@ def _level_trunc_mask(table: GlobalTable, k: int, num_levels: int,
     return torch.gather(keep_level, -1, lid)
 
 
+def key_level_gradients(gauss_oct: torch.Tensor, cfg: SiftConfig,
+                        plain: bool = False):
+    """Gradient magnitude / angle maps (B, NK, h, w) of one octave's key
+    levels without keeping a detection: on a CUDA tensor the detect kernel
+    (it computes them from the same planes), else ops.hessian's gradient."""
+    if gauss_oct.is_cuda and not plain:
+        _, grad, rot = _detect_octave(gauss_oct, cfg)
+        return grad, rot
+    kl = list(cfg.scale_params().key_levels)
+    grad, rot = _grad_rot(gauss_oct[:, kl])
+    return grad.contiguous(), rot.contiguous()
+
+
+def window_sizes(cfg: SiftConfig, max_sigma: float) -> Tuple[int, int]:
+    """Static orientation and descriptor window sizes that cover the support
+    of a keypoint of scale max_sigma (level coordinates). The plain versions
+    gather windows of this size; the kernels size theirs per keypoint."""
+    owin = 2 * int(math.ceil(
+        abs(max_sigma) * cfg.orientation_gaussian_factor
+        * cfg.orientation_window_factor + 1.0)) + 1
+    return owin, descriptor_window_size(max_sigma,
+                                        cfg.descriptor_window_factor)
+
+
+def orient_table(table, maps: LevelMaps, cfg: SiftConfig, owin: int,
+                 single: bool, plain: bool = False):
+    """Orientation stage over a (B, G) table in level coordinates."""
+    fn = kpatch.orientation_plain if plain else kpatch.orientation
+    return fn(table.x, table.y, table.sigma, table.valid, table.level_id,
+              maps, owin,
+              gaussian_factor=cfg.orientation_gaussian_factor,
+              window_factor=cfg.orientation_window_factor,
+              peak_threshold=cfg.multi_orientation_threshold,
+              half_sift=cfg.half_sift, single=single,
+              max_peaks=cfg.max_orientations)
+
+
+def describe_table(table, maps: LevelMaps, cfg: SiftConfig, dwin: int,
+                   plain: bool = False) -> torch.Tensor:
+    """Descriptor stage over a (B, G) table in level coordinates with
+    device-frame theta: (B, G, descriptor_dim), folded and normalized as the
+    configuration says."""
+    fn = kpatch.descriptor_plain if plain else kpatch.descriptor
+    raw = fn(table.x, table.y, table.sigma, table.theta, table.valid,
+             table.level_id, maps, dwin,
+             window_factor=cfg.descriptor_window_factor)
+    return finalize_descriptors(raw, table.valid, cfg.half_sift,
+                                cfg.normalized_sift)
+
+
+def _expand_orientations(table: GlobalTable, thetas: torch.Tensor,
+                         ovalid: torch.Tensor, cap: int) -> GlobalTable:
+    """One slot per (keypoint, orientation): every field repeated 4x, the
+    pairs that hold an orientation compacted to `cap` slots in table order
+    (reference ReshapeFeatureListCPU, PyramidCU.cpp:764-791)."""
+    mask = (ovalid & table.valid[..., None]).flatten(-2)
+    rep = lambda a: a.repeat_interleave(4, dim=-1)
+    lidft = (table.level_id << 2) | (table.ftype & 3)
+    _, outs, slot_valid = compact_sorted(
+        mask,
+        [rep(table.x), rep(table.y), rep(table.sigma), thetas.flatten(-2),
+         rep(table.response), rep(lidft)],
+        cap,
+    )
+    x, y, sg, th, r, lf = outs
+    return GlobalTable(x=x, y=y, sigma=sg, theta=th, response=r,
+                       ftype=torch.where(slot_valid, lf & 3, 0),
+                       level_id=lf >> 2, valid=slot_valid)
+
+
 # ---------------------------------------------------------------------------
 # the pipeline
 # ---------------------------------------------------------------------------
 
 def run_pipeline_batched(imgs: torch.Tensor, plan: PipelinePlan,
                          cfg: SiftConfig, plain: bool = False):
-    """Detection for a batch (B, H, W) of f32 [0, 1] frames, on the device
-    the tensor lies on.
+    """Detect + describe for a batch (B, H, W) of f32 [0, 1] frames, on the
+    device the tensor lies on.
 
     Returns (FeatureTable with leading dim B in image coordinates -
     reference download frame x_img = 2^octave * (x_level - 0.5) + offset,
@@ -297,16 +365,15 @@ def run_pipeline_batched(imgs: torch.Tensor, plan: PipelinePlan,
     return pipeline_from_octaves(octaves, plan, cfg, plain)
 
 
-def pipeline_from_octaves(octaves: List[torch.Tensor], plan: PipelinePlan,
-                          cfg: SiftConfig, plain: bool = False):
-    """Everything after the pyramid: detection, compaction, global table,
-    truncation, image coordinates. octaves: one (B, L, h, w) Gaussian stack
-    per plan octave. Same result as run_pipeline_batched, which calls this;
-    tests also feed it the JAX package's pyramid."""
+def detect_from_octaves(octaves: List[torch.Tensor], plan: PipelinePlan,
+                        cfg: SiftConfig, plain: bool = False):
+    """Detection, compaction, global table and truncation. octaves: one
+    (B, L, h, w) Gaussian stack per plan octave. Returns (GlobalTable (B, G)
+    in level coordinates with theta = 0, LevelMaps of the key levels' gradient
+    maps, aux dict) - the input of the per-keypoint stages."""
     check_supported(cfg)
     p = cfg.scale_params()
     sigma_step = p.sigmak
-    s = p.num_scales
     nkey = len(p.key_levels)
     device = octaves[0].device
 
@@ -314,9 +381,13 @@ def pipeline_from_octaves(octaves: List[torch.Tensor], plan: PipelinePlan,
     sigmas = torch.tensor([p.key_level_sigma(kl) for kl in p.key_levels],
                           dtype=torch.float32, device=device)
     all_lists: List[FeatureList] = []
+    grads: List[torch.Tensor] = []
+    rots: List[torch.Tensor] = []
     for o, gauss_oct in enumerate(octaves):
         with record_function("DETECT_KEYPOINTS"):
-            maps, _grad, _rot = _detect_octave(gauss_oct, cfg, plain)
+            maps, grad, rot = _detect_octave(gauss_oct, cfg, plain)
+            grads.append(grad)
+            rots.append(rot)
         with record_function("GENERATE_FEATURE_LIST"):
             all_lists.append(compact_octave_keypoints(
                 maps, sigmas, sigma_step, plan.level_caps[o * nkey]))
@@ -345,10 +416,47 @@ def pipeline_from_octaves(octaves: List[torch.Tensor], plan: PipelinePlan,
                 keep = table.valid
             table = _recompact(table, keep, G)
 
-    # ---- upright, no descriptors ----------------------------------------------
-    theta = torch.zeros_like(table.theta)
-    desc = torch.zeros(table.x.shape + (cfg.descriptor_dim,),
-                       dtype=torch.float32, device=device)
+    aux = {"level_counts": level_counts, "pre_count": pre_count}
+    return table, LevelMaps(tuple(grads), tuple(rots)), aux
+
+
+def pipeline_from_octaves(octaves: List[torch.Tensor], plan: PipelinePlan,
+                          cfg: SiftConfig, plain: bool = False):
+    """Everything after the pyramid: detection, compaction, global table,
+    truncation, orientations, expansion, descriptors, image coordinates.
+    octaves: one (B, L, h, w) Gaussian stack per plan octave. Same result as
+    run_pipeline_batched, which calls this; tests also feed it the JAX
+    package's pyramid."""
+    table, level_maps, aux = detect_from_octaves(octaves, plan, cfg, plain)
+    p = cfg.scale_params()
+    sigma_step = p.sigmak
+    s = p.num_scales
+    device = table.x.device
+    G = table.x.shape[-1]
+
+    # ---- orientations (one pass over all levels) ------------------------------
+    max_sigma = p.key_level_sigma(p.key_levels[-1]) * \
+        (sigma_step if cfg.subpixel else 1.0)
+    owin, dwin = window_sizes(cfg, max_sigma)
+    single = cfg.max_orientations <= 1 or cfg.fixed_orientation
+    if not cfg.fixed_orientation:     # else theta stays 0: upright
+        with record_function("COMPUTE_ORIENTATIONS"):
+            ores = orient_table(table, level_maps, cfg, owin, single, plain)
+        if single:
+            table = table._replace(theta=ores.thetas[..., 0].contiguous())
+        else:
+            with record_function("MULTI_ORIENTATIONS"):
+                G_exp = int(G * cfg.expansion_factor + 7) // 8 * 8
+                table = _expand_orientations(table, ores.thetas, ores.valid,
+                                             G_exp)
+
+    # ---- descriptors (separate pass) ------------------------------------------
+    if cfg.compute_descriptors:
+        with record_function("COMPUTE_DESCRIPTORS"):
+            desc = describe_table(table, level_maps, cfg, dwin, plain)
+    else:
+        desc = torch.zeros(table.x.shape + (cfg.descriptor_dim,),
+                           dtype=torch.float32, device=device)
 
     # ---- convert to image coordinates -----------------------------------------
     offset = 0.0 if cfg.lowe_origin else 0.5
@@ -360,22 +468,21 @@ def pipeline_from_octaves(octaves: List[torch.Tensor], plan: PipelinePlan,
         y=oss * (table.y - 0.5) + offset,
         sigma=oss * table.sigma,
         theta=torch.where(table.valid,
-                          torch.remainder(TWO_PI - theta, TWO_PI),
-                          torch.zeros_like(theta)),
+                          torch.remainder(TWO_PI - table.theta, TWO_PI),
+                          torch.zeros_like(table.theta)),
         response=table.response,
         level=table.level_id,
         ftype=table.ftype,
         valid=table.valid,
         desc=desc,
     )
-    aux = {"level_counts": level_counts, "pre_count": pre_count}
     return out, aux
 
 
 def run_pipeline(img: torch.Tensor, plan: PipelinePlan, cfg: SiftConfig,
                  plain: bool = False):
-    """Detection for one grayscale image (H, W) f32 in [0, 1]: the batched
-    pipeline at B = 1 with the batch dimension stripped."""
+    """Detect + describe for one grayscale image (H, W) f32 in [0, 1]: the
+    batched pipeline at B = 1 with the batch dimension stripped."""
     table, aux = run_pipeline_batched(img[None], plan, cfg, plain)
     return (FeatureTable(*(a[0] for a in table)),
             {k: v[0] for k, v in aux.items()})

@@ -2,16 +2,19 @@
 """Where the time goes on the port's main path (needs one CUDA device).
 
     python3 scripts/torch_profile_main_path.py [--batch 16] [--iters 5]
+        [--config default|sd-ofix] [--detector hessian|dog]
 
-Runs hessgpu_tpu_torch.detect_batch on seeded 640x480 textures with
-SiftConfig(compute_descriptors=False, fixed_orientation=True) under
-torch.profiler and prints one JSON object: wall time per batch, device-busy
-time per batch (sum of all kernel durations), the device's idle share, device
-time by kernel name (the port's own kernels apart from PyTorch's), and per
-pipeline span (BUILD_PYRAMID, DETECT_KEYPOINTS, GENERATE_FEATURE_LIST) the
-host time inside it and the stretch of the device timeline it covers, gaps
-included. Also the wall time with the profiler off, so the
-instrumentation's cost shows.
+Runs hessgpu_tpu_torch.detect_batch on seeded 640x480 textures under
+torch.profiler, with the default SiftConfig() (orientations, descriptors) or
+with SiftConfig(compute_descriptors=False, fixed_orientation=True) (sd-ofix),
+and prints one JSON object: wall time per batch, device-busy time per batch
+(sum of all kernel durations), the device's idle share, device time by kernel
+name (the port's own kernels apart from PyTorch's), and per pipeline span
+(BUILD_PYRAMID, DETECT_KEYPOINTS, GENERATE_FEATURE_LIST, FEATURES_REDUCTION,
+COMPUTE_ORIENTATIONS, MULTI_ORIENTATIONS, COMPUTE_DESCRIPTORS) the host time
+inside it and the stretch of the device timeline it covers, gaps included.
+Also the wall time with the profiler off, so the instrumentation's cost
+shows.
 """
 
 import argparse
@@ -29,6 +32,10 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--config", choices=["default", "sd-ofix"],
+                    default="default")
+    ap.add_argument("--detector", choices=["hessian", "dog"],
+                    default="hessian")
     args = ap.parse_args()
 
     import numpy as np
@@ -43,7 +50,10 @@ def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
-    cfg = SiftConfig(compute_descriptors=False, fixed_orientation=True)
+    cfg = SiftConfig(detector=args.detector)
+    if args.config == "sd-ofix":
+        cfg = SiftConfig(detector=args.detector, compute_descriptors=False,
+                         fixed_orientation=True)
     imgs = torch.from_numpy(np.stack(
         [texture_frame(seed) for seed in range(args.batch)])).cuda()
 
@@ -60,13 +70,16 @@ def main():
         on = [one() for _ in range(args.iters)]
 
     own = ("blur_kernel", "copy_planes_kernel", "downsample2",
-           "detect_kernel")
+           "detect_kernel", "orientation_kernel", "descriptor_kernel")
+    span_names = ("BUILD_PYRAMID", "DETECT_KEYPOINTS",
+                  "GENERATE_FEATURE_LIST", "FEATURES_REDUCTION",
+                  "COMPUTE_ORIENTATIONS", "MULTI_ORIENTATIONS",
+                  "COMPUTE_DESCRIPTORS")
     by_kernel, spans = {}, {}
     busy_us = 0.0
     for ev in prof.key_averages():
         dev_us = float(getattr(ev, "self_device_time_total", 0.0))
-        if ev.key in ("BUILD_PYRAMID", "DETECT_KEYPOINTS",
-                      "GENERATE_FEATURE_LIST", "FEATURES_REDUCTION"):
+        if ev.key in span_names:
             # the span is reported twice, once from each side
             sp = spans.setdefault(ev.key, {"cpu_ms_per_batch": 0.0,
                                            "device_span_ms_per_batch": 0.0})
@@ -84,7 +97,8 @@ def main():
     own_us = sum(v for k, v in top if any(o in k for o in own))
     wall_on = statistics.median(on)
     print(json.dumps({
-        "card": smi, "batch": args.batch, "iters": args.iters,
+        "card": smi, "config": args.config, "detector": args.detector,
+        "batch": args.batch, "iters": args.iters,
         "wall_ms_per_batch_profiler_off": statistics.median(off),
         "wall_ms_per_batch_profiler_on": wall_on,
         "device_busy_ms_per_batch": busy_us / 1e3 / args.iters,

@@ -12,7 +12,14 @@ at import, so every pytest worker collects the same tests.
 Tolerances: blur, chain, decimation, valid, ftype, response, dx, dy, ds are
 bit-equal (same tap order, -fmad=false); grad 1e-6 relative (sqrtf is IEEE
 on both sides, one last bit allowed), rot 2e-6 rad (atan2f vs torch.atan2 may
-differ in the last bit).
+differ in the last bit). The per-keypoint kernels sum a keypoint's pixels in
+another order than torch.sum / torch.matmul: smoothed votes and raw
+descriptor entries within VOTE_TOL = 2e-5 of the keypoint's largest entry
+(1e-6 * sqrt(N) for N of a few hundred terms), normalized descriptors within
+2e-6. Orientations are discrete; the plain peak picker applied to the
+kernel's own histograms must reproduce the kernel's thetas exactly, so a
+keypoint whose orientations differ between the two routes differs through
+its histogram alone, and that is within tolerance.
 """
 
 import numpy as np
@@ -22,8 +29,10 @@ import torch
 from hessgpu_tpu_torch import SiftConfig, detect_batch, make_plan
 from hessgpu_tpu_torch import pyramid as tpyr
 from hessgpu_tpu_torch.ops import gaussian
-from hessgpu_tpu_torch.ops.cuda import (conv, detect, launch_counts,
+from hessgpu_tpu_torch.ops.cuda import (conv, detect, launch_counts, patch,
                                         reset_launch_counts)
+from hessgpu_tpu_torch.ops.descriptor import finalize_descriptors
+from hessgpu_tpu_torch.ops.orientation import peaks_from_votes
 from hessgpu_tpu_torch.params import gaussian_taps
 from hessgpu_tpu_torch.sfm.synthetic import texture_frame
 
@@ -31,6 +40,7 @@ pytestmark = pytest.mark.gpu
 
 SLICE = dict(compute_descriptors=False, fixed_orientation=True)
 SHAPES = [(2, 96, 128), (1, 101, 75), (3, 30, 40)]
+VOTE_TOL = 2e-5
 
 
 @pytest.fixture(scope="module")
@@ -115,6 +125,120 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
             threshold=0.01, edge_threshold=10.0)
 
 
+def _keypoint_scene(card, shape, detector, **kw):
+    """Table, maps and window sizes of a seeded batch, as the pipeline hands
+    them to the per-keypoint stages."""
+    cfg = SiftConfig(detector=detector, **kw)
+    plan = make_plan(shape[1], shape[2], cfg)
+    octaves = tpyr._build_pyramid(_texture_batch(shape, card), plan, cfg)
+    table, maps, _ = tpyr.detect_from_octaves(octaves, plan, cfg)
+    p = cfg.scale_params()
+    owin, dwin = tpyr.window_sizes(
+        cfg, p.key_level_sigma(p.key_levels[-1]) * p.sigmak)
+    assert int(table.valid.sum()) >= 3
+    return cfg, table, maps, owin, dwin
+
+
+ORI_MODES = [dict(single=True), dict(max_peaks=1), dict(max_peaks=2),
+             dict(max_peaks=3), dict(max_peaks=4),
+             dict(max_peaks=2, half_sift=True),
+             dict(single=True, half_sift=True)]
+
+
+@pytest.mark.parametrize("shape", [(2, 160, 200), (1, 101, 75), (3, 30, 40)],
+                         ids=str)
+@pytest.mark.parametrize("detector", ["hessian", "dog"])
+@pytest.mark.parametrize("mode", ORI_MODES, ids=lambda m: "-".join(
+    f"{k}{int(v)}" for k, v in m.items()))
+def test_orientation_kernel_against_plain(card, shape, detector, mode):
+    _, t, maps, owin, _ = _keypoint_scene(card, shape, detector,
+                                          threshold=0.002)
+    args = (t.x, t.y, t.sigma, t.valid, t.level_id, maps, owin)
+    got = patch.orientation(*args, return_votes=True, **mode)
+    again = patch.orientation(*args, return_votes=True, **mode)
+    want = patch.orientation_plain(*args, **mode)
+    for a, b in zip(got, again):                    # deterministic
+        assert a is None or torch.equal(a, b)
+    scale = want.votes.amax(-1, keepdim=True).clamp_min(1e-30)
+    assert float(((got.votes - want.votes).abs() / scale).max()) <= VOTE_TOL
+    single = mode.get("single", False) or mode.get("max_peaks", 4) <= 1
+    th, ov = peaks_from_votes(got.votes, single=single,
+                              max_peaks=mode.get("max_peaks", 4))
+    inv = ~t.valid[..., None]
+    assert torch.equal(ov & ~inv, got.valid)
+    assert torch.equal(th.masked_fill(inv, 0.0), got.thetas)
+    assert not bool(got.valid[~t.valid].any())      # zeros on invalid slots
+    assert not bool(got.thetas[~t.valid].any())
+    assert not bool(got.votes[~t.valid].any())
+    differing = ((got.valid != want.valid).any(-1)
+                 | (got.thetas != want.thetas).any(-1))
+    if single:
+        torch.testing.assert_close(got.thetas, want.thetas, rtol=0, atol=1e-4)
+    else:
+        assert int(differing.sum()) <= max(1, int(t.valid.sum()) // 100)
+
+
+@pytest.mark.parametrize("shape", [(2, 160, 200), (1, 101, 75), (3, 30, 40)],
+                         ids=str)
+@pytest.mark.parametrize("detector", ["hessian", "dog"])
+def test_descriptor_kernel_against_plain(card, shape, detector):
+    cfg, t, maps, owin, dwin = _keypoint_scene(card, shape, detector,
+                                               threshold=0.002)
+    theta = tpyr.orient_table(t, maps, cfg, owin, True).thetas[..., 0] \
+        .contiguous()
+    args = (t.x, t.y, t.sigma, theta, t.valid, t.level_id, maps, dwin)
+    got = patch.descriptor(*args)
+    assert torch.equal(got, patch.descriptor(*args))            # deterministic
+    want = patch.descriptor_plain(*args)
+    assert got.shape == want.shape == t.x.shape + (16, 8)
+    assert not bool(got[~t.valid].any())
+    scale = want.abs().amax((-2, -1), keepdim=True).clamp_min(1e-30)
+    assert float(((got - want).abs() / scale).max()) <= VOTE_TOL
+    for half in (False, True):
+        a = finalize_descriptors(got, t.valid, half, True)
+        b = finalize_descriptors(want, t.valid, half, True)
+        assert float((a - b).abs().max()) <= 2e-6
+        norms = a[t.valid].norm(dim=-1)
+        assert float((norms - 1).abs().max()) <= 1e-5
+
+
+def test_patch_wrappers_refuse_what_the_kernels_do_not_take(card):
+    _, t, maps, owin, dwin = _keypoint_scene(card, (2, 96, 128), "hessian")
+    with pytest.raises(TypeError):
+        patch.orientation(t.x.double(), t.y, t.sigma, t.valid, t.level_id,
+                          maps, owin)
+    with pytest.raises(ValueError, match="contiguous"):
+        patch.descriptor(t.x.t().contiguous().t(), t.y, t.sigma, t.theta,
+                         t.valid, t.level_id, maps, dwin)
+    with pytest.raises(ValueError):
+        patch.orientation(t.x[:1], t.y[:1], t.sigma[:1], t.valid[:1],
+                          t.level_id[:1], maps, owin)
+
+
+@pytest.mark.parametrize("detector", ["hessian", "dog"])
+def test_default_main_path_goes_through_the_kernels(card, detector):
+    """detect_batch with the default configuration launches all six kernels;
+    its table equals the plain versions' on the card up to the summation
+    order of the two per-keypoint stages."""
+    imgs = _texture_batch((2, 160, 200), card)
+    cfg = SiftConfig(detector=detector)
+    n_oct = make_plan(160, 200, cfg).num_octaves
+    reset_launch_counts()
+    got = detect_batch(imgs, cfg)
+    assert launch_counts() == {"blur": 1, "octave_chain": n_oct,
+                               "downsample2": n_oct - 1,
+                               "detect_octave": n_oct, "orientation": 1,
+                               "descriptor": 1}
+    want = detect_batch(imgs, cfg, plain=True)
+    assert launch_counts()["descriptor"] == 1           # plain launched none
+    assert int(got.count().min()) >= 10
+    for f in ("valid", "level", "ftype", "x", "y", "sigma", "response",
+              "theta"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert float((got.desc - want.desc).abs().max()) <= 2e-6
+    assert got.desc.shape == got.x.shape + (128,)
+
+
 @pytest.mark.parametrize("detector", ["hessian", "dog"])
 def test_main_path_goes_through_the_kernels(card, detector):
     """detect_batch on the card launches every kernel, and its table equals
@@ -126,7 +250,8 @@ def test_main_path_goes_through_the_kernels(card, detector):
     got = detect_batch(imgs, cfg)
     assert launch_counts() == {"blur": 1, "octave_chain": n_oct,
                                "downsample2": n_oct - 1,
-                               "detect_octave": n_oct}
+                               "detect_octave": n_oct, "orientation": 0,
+                               "descriptor": 0}
     want = detect_batch(imgs, cfg, plain=True)
     assert launch_counts()["detect_octave"] == n_oct     # plain launched none
     assert int(got.count().min()) >= 10

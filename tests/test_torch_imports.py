@@ -11,6 +11,7 @@ import hessgpu_tpu_torch as ht
 from hessgpu_tpu_torch.ops.cuda import build, conv, detect
 from hessgpu_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 from hessgpu_tpu_torch.pyramid import check_supported
+from hessgpu_tpu_torch.sfm.synthetic import texture_frame
 
 SLICE = dict(compute_descriptors=False, fixed_orientation=True)
 
@@ -22,6 +23,11 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import hessgpu_tpu_torch.convert, hessgpu_tpu_torch.parallel.batch\n"
         "import hessgpu_tpu_torch.ops.cuda.conv\n"
         "import hessgpu_tpu_torch.ops.cuda.detect\n"
+        "import hessgpu_tpu_torch.ops.cuda.patch\n"
+        "import hessgpu_tpu_torch.ops.gather\n"
+        "import hessgpu_tpu_torch.ops.orientation\n"
+        "import hessgpu_tpu_torch.ops.descriptor\n"
+        "import hessgpu_tpu_torch.describe\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'hessgpu_tpu'"
         " or m.startswith('hessgpu_tpu.')]\n"
@@ -44,7 +50,7 @@ def test_import_builds_and_loads_nothing():
 def test_cuda_without_a_card_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    cfg = ht.SiftConfig(**SLICE)
+    cfg = ht.SiftConfig()
     img = np.zeros((32, 40), np.float32)
     with pytest.raises(RuntimeError, match="cuda"):
         if entry == "detect_batch":
@@ -61,14 +67,33 @@ def test_cuda_without_a_card_raises(entry):
     dict(SLICE, conv_mode="direct"),
 ], ids=["default", "orientation", "descriptors", "first_octave", "direct"])
 def test_unported_configs_raise(kw):
+    """What the port does not cover raises; the configurations that did so
+    before the per-keypoint stages were ported now run, and return real
+    orientations and descriptors."""
     cfg = ht.SiftConfig(**kw)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        check_supported(cfg)
-    img = np.full((32, 40), 0.5, np.float32)
-    with pytest.raises(NotImplementedError):
-        ht.detect_and_describe(img, cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ht.detect_batch(img[None], cfg, device="cpu")
+    img = texture_frame(2, 96, 128)
+    if cfg.first_octave < 0 or cfg.conv_mode != "chain":
+        with pytest.raises(NotImplementedError, match="does not port"):
+            check_supported(cfg)
+        with pytest.raises(NotImplementedError):
+            ht.detect_and_describe(img, cfg, device="cpu")
+        with pytest.raises(NotImplementedError):
+            ht.detect_batch(img[None], cfg, device="cpu")
+        with pytest.raises(NotImplementedError):
+            ht.describe_keypoints(img, np.array([[20.0, 20.0, 2.0]]), cfg,
+                                  device="cpu")
+        return
+    check_supported(cfg)
+    one, _ = ht.detect_and_describe(img, cfg, device="cpu")
+    batch = ht.detect_batch(img[None], cfg, device="cpu")
+    assert int(one.count()) >= 3
+    for a, b in zip(one, batch):
+        assert torch.equal(a, b[0])
+    v = one.valid
+    assert bool(one.theta[v].any()) == (not cfg.fixed_orientation)
+    assert bool((one.desc[v].abs().amax(-1) > 0).all()) \
+        == cfg.compute_descriptors
+    assert not bool(one.desc[~v].any()) and not bool(one.theta[~v].any())
 
 
 def test_hessian_clamps_a_negative_first_octave():
@@ -89,13 +114,16 @@ def test_cpu_runs_count_no_launches():
     reset_launch_counts()
     img = np.random.RandomState(1).rand(1, 40, 48).astype(np.float32)
     ht.detect_batch(img, ht.SiftConfig(**SLICE), device="cpu")
+    ht.detect_batch(img, ht.SiftConfig(), device="cpu")
+    ht.describe_keypoints(img[0], np.array([[20.0, 20.0, 2.0]]), device="cpu")
     assert launch_counts() == {"blur": 0, "octave_chain": 0,
-                               "downsample2": 0, "detect_octave": 0}
+                               "downsample2": 0, "detect_octave": 0,
+                               "orientation": 0, "descriptor": 0}
 
 
 def test_sources_are_in_the_package():
     names = sorted(p.name for p in build.sources())
-    assert names == ["conv.cu", "detect.cu"]
+    assert names == ["conv.cu", "detect.cu", "patch.cu"]
     assert "-fmad=false" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert not any("fast_math" in f for f in build.NVCC_FLAGS)
