@@ -12,7 +12,8 @@ there is no device, and on any failed phase. Phases, one JSON line each:
   kernels    each of the six kernels against its plain PyTorch version on
              the card, at every shape the main path gives it (640x480, B=16,
              five octaves; keypoint tables 16 x 2048 and 16 x 3072) plus an
-             odd and a tiny shape, Hessian and DoG; timings by CUDA events
+             odd shape and one smaller than the chain's halo, Hessian and
+             DoG, and a 33-tap chain that runs in groups; timings by CUDA events
              (warm-up, then the median of REPS launches, the L2 cache
              flushed before each)
   main_path  detect_batch on 16 seeded 640x480 textures, through the
@@ -232,6 +233,10 @@ def main():
             stack = conv.octave_chain(base, taps_list)
             must_equal("octave_chain", "stack", stack,
                        conv.octave_chain_plain(base, taps_list))
+            groups = conv.octave_chain_groups(base, taps_list)
+            if groups != 1:
+                fail(f"octave_chain at {tuple(base.shape)} ({cfg.detector}) "
+                     f"takes {groups} device launches, not one")
             checked["octave_chain"] += 1
             keys += check_detect(stack, cfg)
             if o + 1 < plan.num_octaves:
@@ -260,6 +265,7 @@ def main():
     # an odd shape (plan floor-halves, decimation ceil-halves), a tiny one,
     # the widest filter, and the detector's other switches
     rng = np.random.RandomState(7)
+    taps_h = gaussian.chain_taps(cfg_h.scale_params())
     odd = torch.from_numpy(rng.rand(2, 101, 75).astype(np.float32)).to(dev)
     tiny = torch.from_numpy(rng.rand(3, 30, 40).astype(np.float32)).to(dev)
     for x in (odd, tiny):
@@ -269,7 +275,28 @@ def main():
         must_equal("blur", "33 taps", conv.blur(x, wide),
                    conv.blur_plain(x, wide))
         checked["blur"] += 1
-    odd_stack_h = conv.octave_chain(odd, gaussian.chain_taps(cfg_h.scale_params()))
+    # the chain beyond one launch: four 33-tap transitions (cumulative halo
+    # 64) run in groups of levels wherever the image is larger than a tile
+    # plus that halo, and in one launch where it is smaller than the halo; an
+    # identity transition copies its level
+    wide_chain = [gaussian_taps(5.0)] * 4
+    big = torch.from_numpy(rng.rand(2, 200, 264).astype(np.float32)).to(dev)
+    chain_groups = {}
+    for x in (big, odd, tiny):
+        must_equal("octave_chain", "33-tap chain",
+                   conv.octave_chain(x, wide_chain),
+                   conv.octave_chain_plain(x, wide_chain))
+        chain_groups[str(tuple(x.shape))] = conv.octave_chain_groups(
+            x, wide_chain)
+        checked["octave_chain"] += 1
+        with_identity = [taps_h[0], (), taps_h[1], taps_h[2]]
+        must_equal("octave_chain", "identity transition",
+                   conv.octave_chain(x, with_identity),
+                   conv.octave_chain_plain(x, with_identity))
+        checked["octave_chain"] += 1
+    if chain_groups[str(tuple(big.shape))] < 2:
+        fail(f"the 33-tap chain did not run in groups: {chain_groups}")
+    odd_stack_h = conv.octave_chain(odd, taps_h)
     odd_stack_d = conv.octave_chain(odd, gaussian.chain_taps(cfg_d.scale_params()))
     for stack, cfg in ((odd_stack_h, cfg_h), (odd_stack_d, cfg_d)):
         check_detect(stack, cfg, subpixel=False)
@@ -531,9 +558,16 @@ def main():
     desc_args = (te.x, te.y, te.sigma, te.theta, te.valid, te.level_id, maps,
                  sc["dwin"])
     n_desc, px_desc = te.x.numel(), sum_int(sc["desc_support"])
+    # the same table with every slot marked not valid: what the walk over
+    # the slots and the zeros cost
+    no_slot = torch.zeros_like(te.valid)
+    empty_args = desc_args[:4] + (no_slot,) + desc_args[5:]
+    if bool(patch.descriptor(*empty_args).any()):
+        fail("descriptor: an all-invalid table does not give zeros")
     timing["descriptor"] = dict(
         shape=list(te.x.shape),
         ms=time_ms(lambda: patch.descriptor(*desc_args)),
+        empty_table_ms=time_ms(lambda: patch.descriptor(*empty_args)),
         plain_ms=time_ms(lambda: patch.descriptor_plain(*desc_args), reps=3),
         library_ms=None, valid_keypoints=sum_int(te.valid),
         support_pixels=px_desc,
@@ -551,6 +585,8 @@ def main():
          orientation=ori_stats, descriptor=desc_stats,
          deterministic=["orientation", "descriptor"],
          keypoints_checked={"hessian": keys_h, "dog": keys_d},
+         chain_device_launches_33_taps=chain_groups,
+         empty_table_ms=timing["descriptor"]["empty_table_ms"],
          shapes_checked=checked,
          timing_ms={k: {kk: vv for kk, vv in v.items() if kk != "bound"}
                     for k, v in timing.items()},

@@ -7,25 +7,66 @@
 //   hg_octave_chain  <- octave_chain_pallas
 //   hg_downsample2   <- downsample2_pallas
 //
-// What bounds them on this card: bytes. A 13..21-tap separable filter does
-// 2*taps multiply-adds per pixel against 8 bytes moved per pixel, far under
-// the card's float32 rate, and decimation does no arithmetic at all. So each
-// kernel reads every input pixel from device memory once (plus a halo) and
-// writes every output pixel once: a block stages its tile plus the halo in
-// shared memory with the index clamped to the image (no edge-padded copy in
-// device memory), runs the horizontal pass into a second shared tile and the
-// vertical pass out of it. The chain is L-1 launches of the blur kernel that
-// read level l and write level l+1 in place in the (B, L, H, W) stack, so it
-// moves 2 planes per level where one fused launch would move 1; each level
-// takes its halo from the clamped level below it, which is exactly chained
-// blur. Decimation reads the source plane through its batch/row strides, so
-// a plane of the level stack is decimated in place.
+// Arithmetic, all three: each filter pass is acc = t[0]*x[0];
+// acc = acc + t[k]*x[k], left to right, compiled with -fmad=false, so results
+// equal the plain PyTorch version (ops/gaussian.py) bit for bit.
 //
-// Arithmetic: each pass is acc = t[0]*x[0]; acc = acc + t[k]*x[k], left to
-// right, compiled with -fmad=false, so results equal the plain PyTorch
-// version (ops/gaussian.py) bit for bit.
+// blur and decimation are bound by bytes: a 13-tap separable filter does 52
+// operations per pixel against 8 bytes moved, decimation none at all. Each
+// reads every input pixel from device memory once (plus a halo) and writes
+// every output pixel once. The blur stages its tile plus the halo in shared
+// memory with the index clamped to the image (no edge-padded copy in device
+// memory), runs the horizontal pass into a second shared tile and the
+// vertical pass out of it. Decimation reads the source plane through its
+// batch and row strides, so a plane of the level stack is decimated in place.
+//
+// The chain is bound by bytes and operations about alike: L+1 planes moved,
+// and 4 unfused operations per tap and pixel (248 per pixel for the default
+// four transitions), which no fusion can merge because the rounding of every
+// multiply and add is part of the result. One launch per octave reads the
+// base once and writes all L levels; the levels in between live in shared
+// memory, as octave_chain_pallas keeps them in VMEM. What the design does
+// for this card:
+//  * A block owns a 2-D output tile and stages the tile grown by the
+//    chain's cumulative halo R = sum of the radii, cut to the image. Level
+//    l+1 is computed in place over the tile grown by the halo that the
+//    levels after it still need, again cut to the image, so a small octave
+//    (30 x 40 under R = 29) is computed once and not once per halo pixel.
+//  * Clamp-to-edge at every level: a level outside the image is that level
+//    at the clamped index, not the blur of an extended lower level. Because
+//    every level's region is "grown tile intersected with the image", the
+//    clamped position of any tap lies inside the region the block holds, and
+//    a pass clamps its read index to the region's bounds.
+//  * The passes are register-blocked: a thread produces 8 neighbouring
+//    outputs of a pass from a window of taps + 7 values, each read from
+//    shared memory once, held in 8 registers that rotate by name through a
+//    tap loop unrolled by 8 (the loop stays rolled beyond that: a fully
+//    unrolled pass per tap count ran out of instruction cache). Lanes run
+//    along the other axis (rows in the horizontal pass over an odd pitch,
+//    columns in the vertical), so shared-memory accesses are free of bank
+//    conflicts and global stores are coalesced. A window that touches no
+//    region border skips the clamps. The region is staged with asynchronous
+//    copies, all of a thread's loads in flight at once.
+//  * The host picks the tile from a short list by a cost model (rounds of
+//    one block per SM, a block's passes in rounds of its 1024 threads) among
+//    the tiles whose two shared buffers fit 227 KB. No one tile serves a
+//    pyramid: a 16-frame 480 x 640 octave wants the largest tile that fits
+//    (least recomputation), its 120 x 160 octave a tile small enough to give
+//    most SMs a block, and the DoG chain's wider halo leaves other tiles
+//    fitting than the Hessian's (PERF.md has the times per tile). Planning
+//    costs about as much host time as the rest of a call, so the last plans
+//    are kept, like the per-device set-up. A chain whose halo fits
+//    no tile, or needs more than 3 times the chain's own work, runs in
+//    groups of consecutive levels: the last level of a group is read back
+//    from the output stack as the next group's base. Default taps (Hessian
+//    11, 13, 17, 21; DoG ... 25) are one group, one launch.
 
 #include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstring>
+#include <mutex>
+#include <vector>
 
 namespace {
 
@@ -93,16 +134,235 @@ blur_kernel(const float* __restrict__ in, float* __restrict__ out,
     }
 }
 
-// Copies B planes of n floats between two strided stacks.
-__global__ void copy_planes_kernel(const float* __restrict__ in,
-                                   float* __restrict__ out, long long in_bs,
-                                   long long out_bs, long long n) {
-    const float* src = in + (long long)blockIdx.y * in_bs;
-    float* dst = out + (long long)blockIdx.y * out_bs;
-    const long long step = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-         i += step)
-        dst[i] = src[i];
+// ---------------------------------------------------------------------------
+// octave chain: one launch computes a group of consecutive levels
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxChain = 8;        // transitions per launch
+constexpr int kChainThreads = 1024;
+constexpr int kChainOut = 8;        // outputs a thread produces per window
+
+struct ChainParams {
+    float t[kMaxChain][kMaxTaps];
+    int n[kMaxChain];           // taps of transition l, 0 = identity
+    int rem[kMaxChain + 1];     // halo the levels after level l still need
+    int nt;                     // transitions in this launch
+    int H, W, TH, TW;
+    int pitchA, pitchB;         // odd row pitches of the two shared buffers
+    int offB;                   // floats from buffer A to buffer B
+    int write_base;             // 1: the base is also written out as level 0
+    long long in_bs, out_bs, hw;
+};
+
+// K = 8 neighbouring outputs of one filter pass from a window of nt + K - 1
+// inputs, each read once: acc[j] = sum_k ts[k] * x[j + k], k ascending. The
+// window slides through K registers that rotate by name (the tap loop is
+// unrolled by K), so a tap costs one load of the tap, one of the new input
+// and K multiplies and K adds. at(m) is the address of input m.
+template <typename At>
+__device__ __forceinline__ void fir(At at, const float* __restrict__ ts,
+                                    int nt, float (&acc)[kChainOut]) {
+    constexpr int K = kChainOut;
+    float r[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) r[j] = *at(j);
+    {
+        const float t = ts[0];
+#pragma unroll
+        for (int j = 0; j < K; ++j) acc[j] = t * r[j];
+    }
+    // tap k reads x[k + K - 1] into the register x[k - 1] has left
+    int k = 1;
+#pragma unroll 1
+    for (; k + K <= nt; k += K) {
+#pragma unroll
+        for (int s = 0; s < K; ++s) {
+            const float t = ts[k + s];
+            r[s] = *at(k + s + K - 1);
+#pragma unroll
+            for (int j = 0; j < K; ++j)
+                acc[j] = acc[j] + t * r[(j + s + 1) % K];
+        }
+    }
+    // the last (nt - 1) % K taps: an even number, nt being odd and K even
+    static_assert(K % 2 == 0, "fir: K must be even");
+#pragma unroll
+    for (int s = 0; s < K - 2; s += 2) {
+        if (k + s < nt) {
+#pragma unroll
+            for (int d = 0; d < 2; ++d) {
+                const float t = ts[k + s + d];
+                r[s + d] = *at(k + s + d + K - 1);
+#pragma unroll
+                for (int j = 0; j < K; ++j)
+                    acc[j] = acc[j] + t * r[(j + s + d + 1) % K];
+            }
+        }
+    }
+}
+
+// Horizontal pass of one level: rows [y0, y1) of buffer A, output columns
+// [X0, X1) into buffer B; reads clamp to the columns [x0, x1) that A holds.
+// A is addressed by (row - oy, column - ox), B by (row - oy, column - X0).
+__device__ __forceinline__ void chain_hpass(
+        const float* __restrict__ A, float* __restrict__ Bf,
+        const float* __restrict__ ts, int nt, int y0, int y1, int x0, int x1,
+        int X0, int X1, int oy, int ox, int pA, int pB) {
+    constexpr int K = kChainOut, T = kChainThreads;
+    const int R = nt / 2;
+    const int nrows = y1 - y0;
+    const int items = nrows * ((X1 - X0 + K - 1) / K);
+    // window `item` is rows' residue ry of column group cg: lanes run over
+    // rows; stepping by T threads moves (cg, ry) by (T / nrows, T % nrows)
+    const int step_cg = T / nrows, step_ry = T - step_cg * nrows;
+    int cg = threadIdx.x / nrows, ry = threadIdx.x - cg * nrows;
+    for (int item = threadIdx.x; item < items;
+         item += T, cg += step_cg, ry += step_ry) {
+        if (ry >= nrows) { ry -= nrows; ++cg; }
+        const int c0 = X0 + cg * K, lo = c0 - R;
+        const float* rowp = A + (y0 + ry - oy) * pA - ox;
+        float acc[K];
+        if (lo >= x0 && lo + nt + K - 1 <= x1) {
+            const float* p = rowp + lo;
+            fir([=](int m) { return p + m; }, ts, nt, acc);
+        } else {
+            fir([=](int m) { return rowp + clampi(lo + m, x0, x1 - 1); },
+                   ts, nt, acc);
+        }
+        float* o = Bf + (y0 + ry - oy) * pB + (c0 - X0);
+        if (c0 + K <= X1) {
+#pragma unroll
+            for (int j = 0; j < K; ++j) o[j] = acc[j];
+        } else {
+#pragma unroll
+            for (int j = 0; j < K; ++j)
+                if (c0 + j < X1) o[j] = acc[j];
+        }
+    }
+}
+
+// Vertical pass of one level: output rows [Y0, Y1), columns [X0, X1) out of
+// buffer B, whose rows [y0, y1) are filled; reads clamp to those rows. The
+// result goes to buffer A (unless it is the launch's last level) and, inside
+// the block's tile [ty0, ty1) x [tx0, tx1), to the output plane.
+__device__ __forceinline__ void chain_vpass(
+        const float* __restrict__ Bf, float* __restrict__ A,
+        float* __restrict__ dst, const float* __restrict__ ts, int nt, int y0,
+        int y1, int Y0, int Y1, int X0, int X1, int oy, int ox, int pA, int pB,
+        int ty0, int ty1, int tx0, int tx1, int W, bool keep) {
+    constexpr int K = kChainOut, T = kChainThreads;
+    const int R = nt / 2;
+    const int ncols = X1 - X0;
+    const int items = ncols * ((Y1 - Y0 + K - 1) / K);
+    // window `item` is column cx of row group rg: lanes run over columns
+    const int step_rg = T / ncols, step_cx = T - step_rg * ncols;
+    int rg = threadIdx.x / ncols, cx = threadIdx.x - rg * ncols;
+    for (int item = threadIdx.x; item < items;
+         item += T, rg += step_rg, cx += step_cx) {
+        if (cx >= ncols) { cx -= ncols; ++rg; }
+        const int r0 = Y0 + rg * K, lo = r0 - R;
+        const float* colp = Bf - oy * pB + cx;
+        float acc[K];
+        if (lo >= y0 && lo + nt + K - 1 <= y1) {
+            const float* p = colp + lo * pB;
+            fir([=](int m) { return p + m * pB; }, ts, nt, acc);
+        } else {
+            fir([=](int m) {
+                       return colp + clampi(lo + m, y0, y1 - 1) * pB;
+                   }, ts, nt, acc);
+        }
+        const int gx = X0 + cx;
+        const bool whole = r0 + K <= Y1;
+        if (keep) {
+            float* a = A + (r0 - oy) * pA + (gx - ox);
+            if (whole) {
+#pragma unroll
+                for (int j = 0; j < K; ++j) a[j * pA] = acc[j];
+            } else {
+#pragma unroll
+                for (int j = 0; j < K; ++j)
+                    if (r0 + j < Y1) a[j * pA] = acc[j];
+            }
+        }
+        if (gx >= tx0 && gx < tx1) {
+            float* d = dst + r0 * W + gx;
+            if (r0 >= ty0 && r0 + K <= ty1) {
+#pragma unroll
+                for (int j = 0; j < K; ++j) d[j * W] = acc[j];
+            } else {
+#pragma unroll
+                for (int j = 0; j < K; ++j)
+                    if (r0 + j >= ty0 && r0 + j < ty1) d[j * W] = acc[j];
+            }
+        }
+    }
+}
+
+// Levels 1..nt of a group from its base, for one tile of one batch item.
+// in: the base plane of batch item 0; out: the plane of level 0 of the group
+// in the (B, L, H, W) stack (level l of the group is out + l*hw).
+__global__ void __launch_bounds__(kChainThreads)
+chain_kernel(const float* __restrict__ in, float* __restrict__ out,
+             const __grid_constant__ ChainParams P) {
+    constexpr int T = kChainThreads;
+    extern __shared__ float chain_smem[];
+    float* taps = chain_smem;                    // nt x 33
+    float* A = chain_smem + kMaxChain * kMaxTaps;
+    float* Bf = A + P.offB;
+    for (int i = threadIdx.x; i < P.nt * kMaxTaps; i += T)
+        taps[i] = P.t[i / kMaxTaps][i % kMaxTaps];
+
+    const int H = P.H, W = P.W, pA = P.pitchA, pB = P.pitchB;
+    const int row0 = blockIdx.y * P.TH, col0 = blockIdx.x * P.TW;
+    const int ty0 = row0, ty1 = min(row0 + P.TH, H);
+    const int tx0 = col0, tx1 = min(col0 + P.TW, W);
+    const float* src = in + (long long)blockIdx.z * P.in_bs;
+    float* dst = out + (long long)blockIdx.z * P.out_bs;
+
+    // region of level l: the tile grown by rem[l], cut to the image
+    int y0 = max(0, row0 - P.rem[0]), y1 = min(H, row0 + P.TH + P.rem[0]);
+    int x0 = max(0, col0 - P.rem[0]), x1 = min(W, col0 + P.TW + P.rem[0]);
+    const int oy = y0, ox = x0;
+
+    // Stage the region with asynchronous copies (global to shared without a
+    // register in between), so that a thread has all its loads in flight at
+    // once instead of waiting for each before it can store it.
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int gy = y0 + warp; gy < y1; gy += T / 32) {
+        const float* srow = src + gy * W;
+        const unsigned arow = (unsigned)__cvta_generic_to_shared(
+            A + (gy - oy) * pA - ox);
+        for (int gx = x0 + lane; gx < x1; gx += 32)
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                         :: "r"(arow + 4u * gx), "l"(srow + gx) : "memory");
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+    if (P.write_base)
+        for (int gy = ty0 + warp; gy < ty1; gy += T / 32)
+            for (int gx = tx0 + lane; gx < tx1; gx += 32)
+                dst[gy * W + gx] = A[(gy - oy) * pA + (gx - ox)];
+
+    for (int l = 0; l < P.nt; ++l) {
+        dst += P.hw;
+        const int n = P.n[l];
+        if (n == 0) {   // identity: level l+1 = level l, still in A
+            for (int gy = ty0 + warp; gy < ty1; gy += T / 32)
+                for (int gx = tx0 + lane; gx < tx1; gx += 32)
+                    dst[gy * W + gx] = A[(gy - oy) * pA + (gx - ox)];
+            continue;
+        }
+        const int rem = P.rem[l + 1];
+        const int Y0 = max(0, row0 - rem), Y1 = min(H, row0 + P.TH + rem);
+        const int X0 = max(0, col0 - rem), X1 = min(W, col0 + P.TW + rem);
+        const float* ts = taps + l * kMaxTaps;
+        chain_hpass(A, Bf, ts, n, y0, y1, x0, x1, X0, X1, oy, ox, pA, pB);
+        __syncthreads();
+        chain_vpass(Bf, A, dst, ts, n, y0, y1, Y0, Y1, X0, X1, oy, ox, pA, pB,
+                    ty0, ty1, tx0, tx1, W, l + 1 < P.nt);
+        __syncthreads();
+        y0 = Y0; y1 = Y1; x0 = X0; x1 = X1;
+    }
 }
 
 // out[b, y, x] = in[b*in_bs + 2y*in_rs + 2x]; out is (B, ho, wo) contiguous.
@@ -131,13 +391,193 @@ void launch_blur(const float* in, float* out, long long in_bs, long long out_bs,
     blur_kernel<<<grid, kThreads, 0, s>>>(in, out, in_bs, out_bs, H, W, taps);
 }
 
-void launch_copy(const float* in, float* out, long long in_bs, long long out_bs,
-                 int B, long long n, cudaStream_t s) {
-    const int threads = 256;
-    long long blocks = (n + threads - 1) / threads;
-    if (blocks > 1024) blocks = 1024;
-    copy_planes_kernel<<<dim3((unsigned)blocks, B), threads, 0, s>>>(
-        in, out, in_bs, out_bs, n);
+constexpr size_t kMaxSmem = 232448;   // 227 KB a block may use on sm_90
+
+// the output tiles the cost model chooses from
+constexpr int kTileH[] = {16, 32, 48, 64, 80, 96, 112, 128};
+constexpr int kTileW[] = {32, 64, 96, 128, 160, 192, 256};
+
+struct ChainPlan {
+    int TH = 0, TW = 0;
+    int pitchA = 0, pitchB = 0, offB = 0;
+    size_t smem = 0;
+    double cost = 0.0;     // modelled time of the launch, arbitrary unit
+    double ratio = 0.0;    // multiply-adds done over multiply-adds needed
+};
+
+// Sum and maximum, over the tiles of one axis (size `dim`, tile `T`), of the
+// extent of the tile grown by `halo` and cut to [0, dim).
+void axis_extents(int dim, int T, int halo, double* sum, double* mx) {
+    *sum = 0.0;
+    *mx = 0.0;
+    for (int a = 0; a < dim; a += T) {
+        const int e = (a + T + halo < dim ? a + T + halo : dim)
+            - (a - halo > 0 ? a - halo : 0);
+        *sum += e;
+        if (e > *mx) *mx = e;
+    }
+}
+
+// Shared memory and modelled cost of running transitions [l0, l0 + nt) of a
+// chain in one launch with tile TH x TW. Returns false if it does not fit.
+bool plan_tile(int B, int H, int W, const int* ntaps, int l0, int nt, int TH,
+               int TW, int sms, ChainPlan* out) {
+    int rem[kMaxChain + 2] = {0};
+    for (int l = nt - 1; l >= 0; --l) rem[l] = rem[l + 1] + ntaps[l0 + l] / 2;
+    const int rows0 = TH + 2 * rem[0] < H ? TH + 2 * rem[0] : H;
+    const int cols0 = TW + 2 * rem[0] < W ? TW + 2 * rem[0] : W;
+    const int cols1 = TW + 2 * rem[1] < W ? TW + 2 * rem[1] : W;
+    ChainPlan p;
+    p.TH = TH;
+    p.TW = TW;
+    p.pitchA = cols0 | 1;
+    p.pitchB = cols1 | 1;
+    p.offB = rows0 * p.pitchA;
+    p.smem = sizeof(float) * ((size_t)rows0 * (p.pitchA + p.pitchB)
+                              + kMaxChain * kMaxTaps);
+    if (p.smem > kMaxSmem) return false;
+    // Multiply-adds of all blocks (total), of the biggest block (biggest) and
+    // of the chain itself (needed); and the biggest block's time in units of
+    // one thread's multiply-add: a pass runs in rounds of kChainThreads
+    // windows, each costing its kChainOut * taps multiply-adds plus about 30
+    // for its set-up and stores.
+    double total = 0.0, biggest = 0.0, needed = 0.0, block_time = 0.0;
+    for (int l = 0; l < nt; ++l) {
+        double rs, rm, Rs, Rm, Cs, Cm;
+        axis_extents(H, TH, rem[l], &rs, &rm);
+        axis_extents(H, TH, rem[l + 1], &Rs, &Rm);
+        axis_extents(W, TW, rem[l + 1], &Cs, &Cm);
+        const double n = ntaps[l0 + l];
+        total += n * Cs * (rs + Rs);
+        biggest += n * Cm * (rm + Rm);
+        needed += n * 2.0 * H * W;
+        const double hwin = rm * std::ceil(Cm / kChainOut);
+        const double vwin = Cm * std::ceil(Rm / kChainOut);
+        block_time += (std::ceil(hwin / kChainThreads)
+                       + std::ceil(vwin / kChainThreads))
+            * (kChainOut * n + 30.0) * kChainThreads;
+    }
+    // Blocks run in rounds of one per SM. Edge blocks are smaller than the
+    // biggest (mean / biggest), which shows the more rounds there are.
+    const long long blocks = (long long)B * ((H + TH - 1) / TH)
+        * ((W + TW - 1) / TW);
+    const double rounds = (double)((blocks + sms - 1) / sms);
+    const double edge = biggest > 0.0 ? (total * B / blocks) / biggest : 1.0;
+    p.cost = rounds * block_time * (1.0 - (1.0 - edge) * (1.0 - 1.0 / rounds));
+    if (nt == 0) p.cost = (double)blocks;   // a bare copy: the fewest blocks
+    p.ratio = needed > 0.0 ? total / needed : 1.0;
+    *out = p;
+    return true;
+}
+
+// The cheapest tile for transitions [l0, l0 + nt) among those that fit and
+// do at most max_ratio times the work needed. Returns false if there is none.
+bool plan_group(int B, int H, int W, const int* ntaps, int l0, int nt,
+                int sms, double max_ratio, ChainPlan* best) {
+    bool found = false;
+    for (int TH : kTileH)
+        for (int TW : kTileW) {
+            ChainPlan p;
+            if (!plan_tile(B, H, W, ntaps, l0, nt, TH, TW, sms, &p)
+                    || p.ratio > max_ratio)
+                continue;
+            if (!found || p.cost < best->cost) *best = p;
+            found = true;
+        }
+    return found;
+}
+
+// What the host keeps between calls, under one lock: per device, the SM count
+// (read, and the kernel's shared-memory limit raised, at the first call on
+// that device); and the last plans, because a pyramid asks for the same few
+// shapes over and over.
+struct PlanEntry {
+    int key[4 + kMaxChain];
+    int nt;
+    ChainPlan plan;
+};
+std::mutex g_chain_mutex;
+std::vector<int> g_chain_sms;           // by device ordinal, 0 = not set up
+std::vector<PlanEntry> g_chain_plans;
+
+// SM count of the current device, which is ready to launch chain_kernel.
+cudaError_t chain_device(int* sms) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    std::lock_guard<std::mutex> lock(g_chain_mutex);
+    if ((int)g_chain_sms.size() <= dev) g_chain_sms.resize(dev + 1, 0);
+    if (g_chain_sms[dev] == 0) {
+        int n = 0;
+        e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+        if (e != cudaSuccess) return e;
+        e = cudaFuncSetAttribute(chain_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)kMaxSmem);
+        if (e != cudaSuccess) return e;
+        g_chain_sms[dev] = n;
+    }
+    *sms = g_chain_sms[dev];
+    return cudaSuccess;
+}
+
+// The group of transitions that starts at l0: how many (at most `avail`) and
+// with what tile. The longest group with a tile that fits and does at most
+// 3 times the work needed; a single transition takes any tile that fits.
+// Returns 0 if nothing fits, which the built-in tile list rules out (its
+// smallest tile holds any single transition).
+int plan_chain_group(int B, int H, int W, const int* ntaps, int l0, int avail,
+                     int sms, ChainPlan* plan) {
+    PlanEntry e;
+    const int head[4] = {B, H, W, sms};
+    std::memcpy(e.key, head, sizeof(head));
+    for (int l = 0; l < kMaxChain; ++l)
+        e.key[4 + l] = l < avail ? ntaps[l0 + l] : -1;
+    std::lock_guard<std::mutex> lock(g_chain_mutex);
+    for (const PlanEntry& c : g_chain_plans)
+        if (std::memcmp(c.key, e.key, sizeof(e.key)) == 0) {
+            *plan = c.plan;
+            return c.nt;
+        }
+    e.nt = avail;
+    while (!plan_group(B, H, W, ntaps, l0, e.nt, sms, e.nt > 1 ? 3.0 : 1e30,
+                       &e.plan)) {
+        if (e.nt <= 1) return 0;
+        --e.nt;
+    }
+    if (g_chain_plans.size() >= 64) g_chain_plans.clear();
+    g_chain_plans.push_back(e);
+    *plan = e.plan;
+    return e.nt;
+}
+
+bool chain_args_ok(int B, int L, int H, int W, const int* ntaps) {
+    if (B < 1 || B > 65535 || L < 1 || H < 1 || W < 1
+            || (long long)H * W > 0x7fffffffLL)   // in-plane offsets are ints
+        return false;
+    for (int l = 0; l + 1 < L; ++l)
+        if (ntaps[l] != 0
+                && (ntaps[l] < 1 || ntaps[l] > kMaxTaps || ntaps[l] % 2 == 0))
+            return false;
+    return true;
+}
+
+// Calls launch(l0, nt, plan) for every group of a chain's transitions, in
+// order: at least once, L == 1 being a bare copy of the base (nt = 0).
+template <typename Launch>
+cudaError_t for_each_group(int B, int L, int H, int W, const int* ntaps,
+                           int sms, Launch launch) {
+    int l0 = 0;
+    do {
+        const int avail = L - 1 - l0 < kMaxChain ? L - 1 - l0 : kMaxChain;
+        ChainPlan plan;
+        const int nt = plan_chain_group(B, H, W, ntaps, l0, avail, sms, &plan);
+        if (nt == 0 && avail > 0) return cudaErrorInvalidValue;
+        const cudaError_t e = launch(l0, nt, plan);
+        if (e != cudaSuccess) return e;
+        l0 += nt;
+    } while (l0 + 1 < L);
+    return cudaSuccess;
 }
 
 }  // namespace
@@ -161,33 +601,61 @@ int hg_blur(const float* in, float* out, int B, int H, int W,
 
 // base (B, H, W) -> out (B, L, H, W): out[:, 0] = base,
 // out[:, l+1] = blur(out[:, l], taps of transition l). taps: (L-1) rows of 33
-// host floats; ntaps[l] = width of row l, 0 = identity.
+// host floats; ntaps[l] = width of row l, 0 = identity. One launch per group
+// of consecutive levels.
 int hg_octave_chain(const float* base, float* out, int B, int L, int H, int W,
                     const float* taps, const int* ntaps, void* stream) {
-    if (B < 1 || B > 65535 || L < 1 || H < 1 || W < 1)
-        return (int)cudaErrorInvalidValue;
+    if (!chain_args_ok(B, L, H, W, ntaps)) return (int)cudaErrorInvalidValue;
+    int sms = 0;
+    cudaError_t e = chain_device(&sms);
+    if (e != cudaSuccess) return (int)e;
     cudaStream_t s = (cudaStream_t)stream;
     const long long hw = (long long)H * W;
     const long long stack = hw * L;
-    launch_copy(base, out, hw, stack, B, hw, s);
-    for (int l = 0; l + 1 < L; ++l) {
-        const float* src = out + l * hw;
-        float* dst = out + (l + 1) * hw;
-        if (ntaps[l] == 0) {
-            launch_copy(src, dst, stack, stack, B, hw, s);
-            continue;
+    return (int)for_each_group(B, L, H, W, ntaps, sms,
+                               [&](int l0, int nt, const ChainPlan& plan) {
+        ChainParams P;
+        P.nt = nt;
+        P.rem[nt] = 0;
+        for (int l = nt - 1; l >= 0; --l) {
+            P.n[l] = ntaps[l0 + l];
+            P.rem[l] = P.rem[l + 1] + P.n[l] / 2;
+            for (int k = 0; k < P.n[l]; ++k)
+                P.t[l][k] = taps[(l0 + l) * kMaxTaps + k];
         }
-        Taps t;
-        if (!make_taps(taps + l * kMaxTaps, ntaps[l], &t))
-            return (int)cudaErrorInvalidValue;
-        launch_blur(src, dst, stack, stack, B, H, W, t, s);
-    }
-    return (int)cudaGetLastError();
+        P.H = H; P.W = W; P.TH = plan.TH; P.TW = plan.TW;
+        P.pitchA = plan.pitchA; P.pitchB = plan.pitchB; P.offB = plan.offB;
+        P.write_base = l0 == 0;
+        P.in_bs = l0 == 0 ? hw : stack;
+        P.out_bs = stack;
+        P.hw = hw;
+        dim3 grid((W + plan.TW - 1) / plan.TW, (H + plan.TH - 1) / plan.TH, B);
+        chain_kernel<<<grid, kChainThreads, plan.smem, s>>>(
+            l0 == 0 ? base : out + l0 * hw, out + l0 * hw, P);
+        return cudaGetLastError();
+    });
+}
+
+// The number of device launches (groups of levels) hg_octave_chain makes for
+// these arguments on the current device; -1 if it would refuse them. Launches
+// nothing.
+int hg_octave_chain_groups(int B, int L, int H, int W, const int* ntaps) {
+    int sms = 0;
+    if (!chain_args_ok(B, L, H, W, ntaps)
+            || chain_device(&sms) != cudaSuccess)
+        return -1;
+    int groups = 0;
+    const cudaError_t e = for_each_group(
+        B, L, H, W, ntaps, sms, [&](int, int, const ChainPlan&) {
+            ++groups;
+            return cudaSuccess;
+        });
+    return e == cudaSuccess ? groups : -1;
 }
 
 // Decimation by 2 keeping even rows/cols: in is B planes of (h, w) with
 // element strides in_bs (batch) and in_rs (row), unit column stride; out is
-// (B, ceil(h/2), ceil(w/2)) contiguous.
+// (B, std::ceil(h/2), std::ceil(w/2)) contiguous.
 int hg_downsample2(const float* in, float* out, int B, int h, int w,
                    long long in_bs, long long in_rs, void* stream) {
     if (B < 1 || B > 65535 || h < 1 || w < 1)

@@ -12,12 +12,12 @@
 // plain PyTorch versions (ops/orientation.py, ops/descriptor.py), so the set
 // of contributing pixels is the same. Slots that are not valid get zeros.
 //
-// What bounds them on this card: by the roofline bytes (a keypoint's support
+// What bounds them on this card: by the roofline, bytes (a keypoint's support
 // is 10^2..10^4 pixels of two maps, a few MB for a whole batch, microseconds
 // at 3.35 TB/s, against some 25 (orientation) or 75 (descriptor) float
-// operations per pixel); in practice latency and instruction throughput, far
-// above either bound. The designs aim at being right and deterministic
-// first:
+// operations per pixel, plus the descriptor's 25 MB of output); in practice
+// instruction issue and the latency of a warp's serial walk over its
+// keypoint, far above either bound.
 //
 //  * orientation: one warp per slot. Lane l takes the pixels l, l+32, ... of
 //    the support's bounding box in raster order and adds their votes into
@@ -25,13 +25,27 @@
 //    to one address; the 32 columns of a bin are then summed in lane order.
 //    Lane 0 runs the smoothing and the peak picking, which are branchy and
 //    tiny.
-//  * descriptor: one block of 128 threads per slot, thread t owning entry
-//    (cell t / 8, bin t % 8) of the 16 x 8 table. The block stages a tile of
-//    256 bounding-box pixels (weight, cell coordinates, orientation bin and
-//    fraction, each computed once) in shared memory, then every thread walks
-//    the tile in raster order and adds its own entry's share. The 16 x 8
-//    table is thus the contraction sum_px U[cell, px] * V[bin, px] computed
-//    here, with one fixed summation order per entry.
+//  * descriptor: a pixel of the support touches at most 2 x 2 cells x 2 bins
+//    of the 16 x 8 table, so the design spends instructions only where a
+//    pixel has entries. A block of 4 warps serves one slot. The support's
+//    bounding box is cut, in raster order, into rounds of 32 pixels; warp w
+//    takes the rounds w, w + 4, ... and alternates two steps. Staging: each
+//    lane computes its pixel once (membership, Gaussian weight, cell
+//    coordinates, the two bin shares; the two map values are requested a
+//    round ahead) and the contributing ones are appended, in order, to the
+//    warp's ring in shared memory. Accumulation: 8 staged pixels at a time,
+//    lane = (pixel q of the 8, corner (dy, dx) of its 2 x 2 cells): every
+//    lane has an entry to add, into bins ob and ob + 1 of its cell in table
+//    q of the warp's 8 private tables, so no two lanes of a step write one
+//    address. The 4 x 8 tables are summed in order at the end. A pixel's
+//    warp and table follow from its place in the bounding box alone: one
+//    fixed order per entry. Warps meet at a block barrier only once per
+//    slot, so they are at different stages and hide each other's latency.
+//    Slots are walked by a fixed grid (8 blocks per SM) in table-column
+//    order (slot g of every batch item, then slot g + 1), which spreads the
+//    valid slots - packed at the front of each item's row - evenly over the
+//    blocks; a slot that is not valid costs its block one 512-byte store of
+//    zeros, its flag having been fetched with 127 others.
 //
 // No floating-point atomics anywhere: two runs give the same bits. The
 // expressions follow the plain versions operation by operation and the file
@@ -77,7 +91,8 @@ orientation_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
                    const unsigned char* __restrict__ valids,
                    const int* __restrict__ level_ids,
                    float* __restrict__ o_theta, unsigned char* __restrict__ o_valid,
-                   float* __restrict__ o_votes, LevelTable T, OriParams P) {
+                   float* __restrict__ o_votes,
+                   const __grid_constant__ LevelTable T, OriParams P) {
     __shared__ float hist[kOriWarps][kBins * kCol];
     __shared__ float vbuf[kOriWarps][2][kBins];
 
@@ -210,8 +225,12 @@ orientation_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
 // descriptor
 // ---------------------------------------------------------------------------
 
-constexpr int kDescThreads = 128;   // one per (cell, bin)
-constexpr int kTile = 256;          // pixels staged at a time
+constexpr int kDescWarps = 4;     // warps that share one slot's pixels
+constexpr int kGroup = 8;         // staged pixels accumulated per step
+constexpr int kRing = 64;         // staged pixels a warp can hold
+constexpr int kRowPitch = 34;     // floats per cell row: 4 cells x 8 bins + 2
+constexpr int kTabPitch = 140;    // floats per private table: 4 rows + 4
+constexpr int kDescBlocksPerSM = 8;
 
 struct DescParams {
     int n, G;
@@ -220,95 +239,187 @@ struct DescParams {
     float four_over_pi;
 };
 
-__global__ void __launch_bounds__(kDescThreads)
+__global__ void __launch_bounds__(kDescWarps * 32, kDescBlocksPerSM)
 descriptor_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
                   const float* __restrict__ sigmas,
                   const float* __restrict__ thetas,
                   const unsigned char* __restrict__ valids,
                   const int* __restrict__ level_ids, float* __restrict__ out,
-                  LevelTable T, DescParams P) {
-    __shared__ float s_w[kTile], s_cu[kTile], s_cv[kTile], s_w2[kTile];
-    __shared__ int s_ob[kTile];
+                  const __grid_constant__ LevelTable T, DescParams P) {
+    // per warp: 8 private 16 x 8 tables (padded against bank conflicts) and
+    // the ring of staged pixels: (cu, cv, share of bin ob, share of bin
+    // ob + 1) and (floor cu, floor cv, table offsets of the two bins in cell
+    // (floor cv, floor cu))
+    __shared__ __align__(16) float s_tab[kDescWarps][kGroup * kTabPitch];
+    __shared__ float4 s_pix[kDescWarps][kRing];
+    __shared__ float4 s_idx[kDescWarps][kRing];
+    __shared__ int s_lid[kDescWarps * 32];
 
-    const int slot = blockIdx.x, tid = threadIdx.x;
-    const int lid = level_ids[slot];
-    if (!valids[slot] || lid < 0 || lid >= T.NL) {   // the whole block
-        out[(long long)slot * kDescThreads + tid] = 0.0f;
-        return;
-    }
-    const float kx = xs[slot], ky = ys[slot], th = thetas[slot];
-    const int H = T.h[lid], W = T.w[lid];
-    const long long plane = (long long)(slot / P.G) * T.bstride[lid];
-    const float* __restrict__ g = T.grad[lid] + plane;
-    const float* __restrict__ r = T.rot[lid] + plane;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    float* tab = s_tab[warp];
+    float4* pix = s_pix[warp];
+    float4* idx = s_idx[warp];
+    const unsigned full = 0xffffffffu;
+    const unsigned below = (1u << lane) - 1u;
 
-    const float spt = fabsf(sigmas[slot] * P.window_factor);
-    const float c = cosf(th), s = sinf(th);
-    const float crspt = c / spt, srspt = s / spt;
-    const float anglef = th > P.pi ? th - P.two_pi : th;
+    // accumulation role: pixel q of a group, corner (dy, dx) of its cells
+    const int q = lane >> 2, dy = (lane >> 1) & 1, dx = lane & 1;
+    const float dyf = (float)dy, dxf = (float)dx;
+    float* mine = tab + q * kTabPitch + dy * kRowPitch + dx * 8;
+    // reduction role: entry threadIdx.x = cell * 8 + bin of the 16 x 8 table
+    const int rcell = threadIdx.x >> 3;
+    const int roff = (rcell >> 2) * kRowPitch + (rcell & 3) * 8
+        + (threadIdx.x & 7);
 
-    // The support is |u|, |v| < 2.5 cells in the rotated frame, so a pixel
-    // centre lies within 2.5 * spt * (|cos| + |sin|) of the keypoint on each
-    // axis; two pixels of margin cover the rounding. Interior pixels only.
-    const float R = 2.5f * spt * (fabsf(c) + fabsf(s)) + 2.0f;
-    const int ix0 = (int)fmaxf(1.0f, floorf(kx - R));
-    const int ix1 = (int)fminf((float)W - 2.0f, ceilf(kx + R));
-    const int iy0 = (int)fmaxf(1.0f, floorf(ky - R));
-    const int iy1 = (int)fminf((float)H - 2.0f, ceilf(ky + R));
-    const int nx = ix1 - ix0 + 1, ny = iy1 - iy0 + 1;
-    const int npx = (nx > 0 && ny > 0) ? nx * ny : 0;
+    auto accumulate = [&](int slot_in_ring) {
+        const float4 a = pix[slot_in_ring];
+        const float4 b = idx[slot_in_ring];
+        const float cxf = b.x + dxf, cyf = b.y + dyf;
+        if (cxf >= 0.0f && cxf <= 3.0f && cyf >= 0.0f && cyf <= 3.0f) {
+            const float ay = fmaxf(0.0f, 1.0f - fabsf(a.y - cyf));
+            const float ax = fmaxf(0.0f, 1.0f - fabsf(a.x - cxf));
+            const float w = ay * ax;
+            float* e1 = mine + __float_as_int(b.z);
+            float* e2 = mine + __float_as_int(b.w);
+            *e1 = *e1 + w * a.z;
+            *e2 = *e2 + w * a.w;
+        }
+    };
 
-    const float cyf = (float)(tid >> 5);         // one cell row per warp
-    const float cxf = (float)((tid >> 3) & 3);
-    const int bin = tid & 7;
-    float acc = 0.0f;
-    for (int t0 = 0; t0 < npx; t0 += kTile) {
-        for (int j = tid; j < kTile; j += kDescThreads) {
-            const int p = t0 + j;
-            float wgt = 0.0f, cu = 0.0f, cv = 0.0f, w2 = 0.0f;
-            int ob = 0;
-            if (p < npx) {
-                const int row = p / nx;
-                const int iy = iy0 + row, ix = ix0 + (p - row * nx);
-                const float dx = ((float)ix + 0.5f) - kx;
-                const float dy = ((float)iy + 0.5f) - ky;
+    // The block's slots are j = blockIdx.x, + gridDim.x, ... in table-column
+    // order. Their level ids (-1: not valid) are fetched 128 at a time, one
+    // per thread, so that walking the many slots that are not valid costs
+    // stores only and no chain of dependent loads.
+    constexpr int kAhead = kDescWarps * 32;
+    const int B = P.n / P.G;
+    const int per_block = (P.n - blockIdx.x + gridDim.x - 1) / gridDim.x;
+    auto slot_of = [&](int k) {
+        const int j = blockIdx.x + k * gridDim.x, g = j / B;
+        return (j - g * B) * P.G + g;
+    };
+    for (int k = 0; k < per_block; ++k) {
+        if (k % kAhead == 0) {
+            __syncthreads();
+            int lid = -1;
+            if (k + threadIdx.x < per_block) {
+                const int slot = slot_of(k + threadIdx.x);
+                lid = level_ids[slot];
+                if (!valids[slot] || lid >= T.NL) lid = -1;
+            }
+            s_lid[threadIdx.x] = lid;
+            __syncthreads();
+        }
+        const int slot = slot_of(k);
+        float* dst = out + (long long)slot * 128;
+        const int lid = s_lid[k % kAhead];
+        if (lid < 0) {   // the whole block
+            dst[threadIdx.x] = 0.0f;
+            continue;
+        }
+        for (int i = lane; i < kGroup * kTabPitch / 4; i += 32)
+            reinterpret_cast<float4*>(tab)[i] =
+                make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        __syncwarp();
+
+        const float kx = xs[slot], ky = ys[slot], th = thetas[slot];
+        const int H = T.h[lid], W = T.w[lid];
+        const long long plane = (long long)(slot / P.G) * T.bstride[lid];
+        const float* __restrict__ gm = T.grad[lid] + plane;
+        const float* __restrict__ rm = T.rot[lid] + plane;
+
+        const float spt = fabsf(sigmas[slot] * P.window_factor);
+        const float c = cosf(th), s = sinf(th);
+        const float crspt = c / spt, srspt = s / spt;
+        const float anglef = th > P.pi ? th - P.two_pi : th;
+
+        // The support is |u|, |v| < 2.5 cells in the rotated frame, so a
+        // pixel centre lies within 2.5 * spt * (|cos| + |sin|) of the
+        // keypoint on each axis; two pixels of margin cover the rounding.
+        // Interior pixels only.
+        const float R = 2.5f * spt * (fabsf(c) + fabsf(s)) + 2.0f;
+        const int ix0 = (int)fmaxf(1.0f, floorf(kx - R));
+        const int ix1 = (int)fminf((float)W - 2.0f, ceilf(kx + R));
+        const int iy0 = (int)fmaxf(1.0f, floorf(ky - R));
+        const int iy1 = (int)fminf((float)H - 2.0f, ceilf(ky + R));
+        const int nx = ix1 - ix0 + 1, ny = iy1 - iy0 + 1;
+        const int npx = (nx > 0 && ny > 0) ? nx * ny : 0;
+
+        // Round t of the bounding box is its pixels 32 t .. 32 t + 31 in
+        // raster order; warp w takes the rounds t = w, w + 4, ... A round's
+        // two map values are requested one round ahead, so their latency is
+        // spent under the accumulation of the round before.
+        int head = 0, count = 0;      // ring: [head, head + count), 8 | head
+        int col = warp * 32 + lane, row = 0;
+        float u = 0.0f, v = 0.0f, rot = 0.0f, grad = 0.0f;
+        bool member = false;
+        auto locate = [&]() {         // this lane's pixel of the next round
+            while (col >= nx) { col -= nx; ++row; }
+            member = false;
+            if (row < ny) {
+                const int iy = iy0 + row, ix = ix0 + col;
+                const float dxp = ((float)ix + 0.5f) - kx;
+                const float dyp = ((float)iy + 0.5f) - ky;
                 // cell-frame coordinates: u along descriptor x, v along y
-                const float u = crspt * dx + srspt * dy;
-                const float v = crspt * dy - srspt * dx;
-                cu = u + 1.5f;
-                cv = v + 1.5f;
-                if (cu > -1.0f && cu < 4.0f && cv > -1.0f && cv < 4.0f) {
-                    const long long o = (long long)iy * W + ix;
-                    const float gauss_w = expf(-0.125f * (u * u + v * v));
-                    float tp = (anglef - r[o]) * P.four_over_pi;
-                    if (tp < 0.0f) tp = tp + 8.0f;
-                    const float fo = floorf(tp);
-                    ob = min(max((int)fo, 0), 7);   // guard the fp edge at 8.0
-                    w2 = tp - fo;                   // weight of bin ob + 1
-                    wgt = gauss_w * g[o];
+                u = crspt * dxp + srspt * dyp;
+                v = crspt * dyp - srspt * dxp;
+                const float cu = u + 1.5f, cv = v + 1.5f;
+                member = cu > -1.0f && cu < 4.0f && cv > -1.0f && cv < 4.0f;
+                if (member) {
+                    rot = rm[iy * W + ix];
+                    grad = gm[iy * W + ix];
                 }
             }
-            s_w[j] = wgt; s_cu[j] = cu; s_cv[j] = cv; s_w2[j] = w2;
-            s_ob[j] = ob;
+            col += kDescWarps * 32;
+        };
+        if (npx > 0) locate();
+        for (int t0 = warp * 32; t0 < npx; t0 += kDescWarps * 32) {
+            const bool m_now = member;
+            const float u_now = u, v_now = v, rot_now = rot, grad_now = grad;
+            if (t0 + kDescWarps * 32 < npx) locate();
+            float4 a, b;
+            if (m_now) {
+                const float cu = u_now + 1.5f, cv = v_now + 1.5f;
+                const float gauss_w =
+                    expf(-0.125f * (u_now * u_now + v_now * v_now));
+                float tp = (anglef - rot_now) * P.four_over_pi;
+                if (tp < 0.0f) tp = tp + 8.0f;
+                const float fo = floorf(tp);
+                const int ob = min(max((int)fo, 0), 7);   // fp edge at 8.0
+                const float w2 = tp - fo;                 // bin ob + 1
+                const float w1 = 1.0f - w2;
+                const float wgt = gauss_w * grad_now;
+                const float fcu = floorf(cu), fcv = floorf(cv);
+                const int cell = (int)fcv * kRowPitch + (int)fcu * 8;
+                a = make_float4(cu, cv, w1 * wgt, w2 * wgt);
+                b = make_float4(fcu, fcv, __int_as_float(cell + ob),
+                                __int_as_float(cell + ((ob + 1) & 7)));
+            }
+            const unsigned m = __ballot_sync(full, m_now);
+            if (m_now) {
+                const int at = (head + count + __popc(m & below)) & (kRing - 1);
+                pix[at] = a;
+                idx[at] = b;
+            }
+            count += __popc(m);
+            __syncwarp();
+            while (count >= kGroup) {
+                accumulate(head + q);
+                head = (head + kGroup) & (kRing - 1);
+                count -= kGroup;
+                __syncwarp();
+            }
         }
+        if (count > 0 && q < count) accumulate(head + q);
+
+        // entry e of the table: the 4 warps' 8 tables each, in order
         __syncthreads();
-        const int cnt = min(kTile, npx - t0);
-        for (int j = 0; j < cnt; ++j) {
-            const float wgt = s_w[j];
-            if (wgt == 0.0f) continue;              // adds nothing; block-uniform
-            const float ay = fmaxf(0.0f, 1.0f - fabsf(s_cv[j] - cyf));
-            if (ay == 0.0f) continue;               // warp-uniform
-            const float ax = fmaxf(0.0f, 1.0f - fabsf(s_cu[j] - cxf));
-            const int ob = s_ob[j];
-            const float w2 = s_w2[j];
-            const float w1 = 1.0f - w2;
-            const float gb = (ob == bin ? w1 : 0.0f)
-                + (((ob + 1) & 7) == bin ? w2 : 0.0f);
-            acc += (ay * ax) * (gb * wgt);
-        }
-        __syncthreads();
+        float sum = s_tab[0][roff];
+#pragma unroll
+        for (int t = 1; t < kDescWarps * kGroup; ++t)
+            sum = sum + s_tab[t / kGroup][(t % kGroup) * kTabPitch + roff];
+        dst[threadIdx.x] = sum;
+        __syncthreads();   // the tables are zeroed again for the next slot
     }
-    out[(long long)slot * kDescThreads + tid] = acc;
 }
 
 bool fill_levels(LevelTable& T, const long long* grad_ptrs,
@@ -369,14 +480,22 @@ int hg_descriptor(const float* x, const float* y, const float* sigma,
                   int NL, float window_factor, float pi, float two_pi,
                   float four_over_pi, void* stream) {
     LevelTable T;
-    if (n < 1 || G < 1 || !fill_levels(T, grad_ptrs, rot_ptrs, bstride, lh,
-                                       lw, NL))
+    if (n < 1 || G < 1 || n % G != 0
+            || !fill_levels(T, grad_ptrs, rot_ptrs, bstride, lh, lw, NL))
         return (int)cudaErrorInvalidValue;
     DescParams P;
     P.n = n; P.G = G;
     P.window_factor = window_factor; P.pi = pi; P.two_pi = two_pi;
     P.four_over_pi = four_over_pi;
-    descriptor_kernel<<<n, kDescThreads, 0, (cudaStream_t)stream>>>(
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    // a fixed grid that fills the card once; its blocks stride over the slots
+    int blocks = sms * kDescBlocksPerSM;
+    if (blocks > n) blocks = n;
+    descriptor_kernel<<<blocks, kDescWarps * 32, 0, (cudaStream_t)stream>>>(
         x, y, sigma, theta, valid, level_id, out, T, P);
     return (int)cudaGetLastError();
 }

@@ -26,6 +26,8 @@ _ARGTYPES = {
                 _ptr, ctypes.c_int, _ptr],
     "hg_octave_chain": [_ptr, _ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, _ptr, _ptr, _ptr],
+    "hg_octave_chain_groups": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, _ptr],
     "hg_downsample2": [_ptr, _ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_longlong, _ptr],
 }
@@ -89,28 +91,35 @@ def octave_chain_plain(base: torch.Tensor,
     return octave_chain_taps(base, taps_list)
 
 
+def _chain_args(base: torch.Tensor, taps_list, name: str):
+    """Checked arguments of the chain's C functions: the float32 taps, their
+    (L-1, 33) rows and their widths."""
+    _check_planes(base, name)
+    tl = [taps_f32(tp) for tp in taps_list]
+    for tp in tl:
+        if len(tp):
+            _check_taps(tp, name)
+    flat = np.zeros((max(len(tl), 1), MAX_TAPS), np.float32)
+    ntaps = np.zeros(max(len(tl), 1), np.int32)
+    for l, tp in enumerate(tl):
+        flat[l, :len(tp)] = tp
+        ntaps[l] = len(tp)
+    return tl, flat, ntaps
+
+
 def octave_chain(base: torch.Tensor,
                  taps_list: Sequence[Sequence[float]]) -> torch.Tensor:
     """Whole-octave Gaussian chain: level 0 = base, level l+1 = blur(level l,
     taps_list[l]) with clamp-to-edge at every level (empty taps = identity).
     base (B, H, W) float32 -> (B, 1 + len(taps_list), H, W); equals chained
     blur() exactly."""
-    _check_planes(base, "octave_chain")
-    tl = [taps_f32(tp) for tp in taps_list]
-    for tp in tl:
-        if len(tp):
-            _check_taps(tp, "octave_chain")
+    tl, flat, ntaps = _chain_args(base, taps_list, "octave_chain")
     if not base.is_cuda:
         return octave_chain_plain(base, tl)
     if not base.is_contiguous():
         raise ValueError("octave_chain: input must be contiguous")
     B, H, W = base.shape
     L = 1 + len(tl)
-    flat = np.zeros((max(L - 1, 1), MAX_TAPS), np.float32)
-    ntaps = np.zeros(max(L - 1, 1), np.int32)
-    for l, tp in enumerate(tl):
-        flat[l, :len(tp)] = tp
-        ntaps[l] = len(tp)
     out = torch.empty((B, L, H, W), dtype=torch.float32, device=base.device)
     with build.on_device_of(base):
         err = _fn("hg_octave_chain")(
@@ -119,6 +128,23 @@ def octave_chain(base: torch.Tensor,
     build.check(err, "octave_chain")
     build.count_launch("octave_chain")
     return out
+
+
+def octave_chain_groups(base: torch.Tensor,
+                        taps_list: Sequence[Sequence[float]]) -> int:
+    """The number of device launches octave_chain(base, taps_list) makes on
+    base's CUDA device: one per group of levels the kernel keeps in shared
+    memory (1 for the default Hessian and DoG taps). Launches nothing."""
+    tl, _, ntaps = _chain_args(base, taps_list, "octave_chain_groups")
+    if not base.is_cuda:
+        raise ValueError("octave_chain_groups: needs a CUDA tensor")
+    B, H, W = base.shape
+    with build.on_device_of(base):
+        groups = _fn("hg_octave_chain_groups")(B, 1 + len(tl), H, W,
+                                               ntaps.ctypes.data)
+    if groups < 0:
+        raise RuntimeError("octave_chain_groups: arguments refused")
+    return groups
 
 
 # ---------------------------------------------------------------------------

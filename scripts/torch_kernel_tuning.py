@@ -1,0 +1,257 @@
+#!/usr/bin/env python3
+"""Registers, correctness and tile timings of the octave-chain and descriptor
+kernels (needs one CUDA device and nvcc).
+
+    python3 scripts/torch_kernel_tuning.py [--quick] [--ptxas-log FILE]
+                                           [--tiles 80x128,64x64,...]
+
+Builds the kernel library with -Xptxas -v and prints each kernel's registers,
+shared memory and spills; holds octave_chain against its plain version at
+the main path's shapes, small and odd ones, a 33-tap chain that runs in
+groups and an identity transition; holds descriptor against its plain
+version on the seeded 640x480 B=16 batch; then (unless --quick) times the
+descriptor on the full and on an all-invalid table, the host's planning of a
+chain with and without its plan cache, and the chain per octave and detector
+with the tile its cost model picks beside each tile of --tiles. The kernel
+has no argument that fixes its tile: for each tile the script compiles a copy
+of csrc/conv.cu whose tile list is cut to that tile, and the chain is checked
+and timed through it wherever that tile runs the octave in one launch. Times
+are medians of CUDA-event timings with the L2 cache evicted before each
+launch. Prints JSON lines.
+"""
+
+import argparse
+import ctypes
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--quick", action="store_true",
+                    help="build and check only, no timings")
+    ap.add_argument("--ptxas-log", type=Path,
+                    help="also write the compiler's whole output here")
+    ap.add_argument("--tiles", default="80x128,64x128,96x128,128x96,64x160,"
+                    "80x96,80x64,64x64,128x32,32x32",
+                    help="rows x columns of the tiles to time beside the "
+                    "cost model's choice")
+    args = ap.parse_args()
+
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    from hessgpu_tpu_torch import SiftConfig, make_plan
+    from hessgpu_tpu_torch import pyramid as tpyr
+    from hessgpu_tpu_torch.ops import gaussian
+    from hessgpu_tpu_torch.ops.cuda import build, conv, patch
+    from hessgpu_tpu_torch.params import gaussian_taps
+    from hessgpu_tpu_torch.sfm.synthetic import texture_frame
+
+    def emit(what, **fields):
+        print(json.dumps({"what": what, **fields}), flush=True)
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    emit("card", nvidia_smi=smi.stdout.strip())
+
+    # ---- ptxas ------------------------------------------------------------
+    log = io.StringIO()
+    with redirect_stdout(log):
+        build.build(verbose=True)
+    if args.ptxas_log:
+        args.ptxas_log.parent.mkdir(parents=True, exist_ok=True)
+        args.ptxas_log.write_text(log.getvalue())
+    name = None
+    for line in log.getvalue().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            emit("ptxas", kernel=name, registers=int(m.group(1)),
+                 static_smem=int(smem.group(1)) if smem else 0)
+        if "spill" in line and name and \
+                "0 bytes spill stores, 0 bytes spill loads" not in line:
+            emit("ptxas_spill", kernel=name, line=line.strip())
+    emit("build", seconds=build.build_seconds)
+
+    flush_buf = torch.empty(512 * 1024 * 1024, dtype=torch.int8, device=dev)
+
+    def time_ms(fn, reps=10):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(reps):
+            flush_buf.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    # ---- chain: correctness -----------------------------------------------
+    rng = np.random.RandomState(3)
+    taps = {d: gaussian.chain_taps(SiftConfig(detector=d).scale_params())
+            for d in ("hessian", "dog")}
+    wide = [gaussian_taps(5.0)] * 4
+    cases = []
+    for shape in [(16, 480, 640), (16, 240, 320), (16, 120, 160),
+                  (16, 60, 80), (16, 30, 40), (2, 101, 75), (3, 30, 40)]:
+        for d in ("hessian", "dog"):
+            cases.append((shape, d, taps[d]))
+    cases += [((2, 200, 264), "33x4", wide),
+              ((3, 30, 40), "33x4", wide),
+              ((2, 200, 264), "hessian", taps["hessian"]),
+              ((2, 200, 264), "dog", taps["dog"]),
+              ((1, 101, 75), "identity",
+               [taps["hessian"][0], (), taps["hessian"][1]])]
+    bad = 0
+    for shape, label, tl in cases:
+        x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev)
+        got = conv.octave_chain(x, tl)
+        want = conv.octave_chain_plain(x, tl)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        bad += not equal
+        emit("chain_check", shape=shape, taps=label, equal=equal,
+             device_launches=conv.octave_chain_groups(x, tl),
+             max_abs_err=float((got - want).abs().max()))
+
+    # ---- descriptor: correctness ------------------------------------------
+    frames = np.stack([texture_frame(seed) for seed in range(16)])
+    imgs = torch.from_numpy(frames).to(dev)
+    scenes = {}
+    for det in ("hessian", "dog"):
+        cfg = SiftConfig(detector=det)
+        plan = make_plan(480, 640, cfg)
+        t, maps, _ = tpyr.detect_from_octaves(
+            tpyr._build_pyramid(imgs, plan, cfg), plan, cfg)
+        p = cfg.scale_params()
+        owin, dwin = tpyr.window_sizes(
+            cfg, p.key_level_sigma(p.key_levels[-1]) * p.sigmak)
+        ori = patch.orientation(t.x, t.y, t.sigma, t.valid, t.level_id, maps,
+                                owin, max_peaks=cfg.max_orientations)
+        g_exp = int(t.x.shape[-1] * cfg.expansion_factor + 7) // 8 * 8
+        te = tpyr._expand_orientations(t, ori.thetas, ori.valid, g_exp)
+        a = (te.x, te.y, te.sigma, te.theta, te.valid, te.level_id, maps, dwin)
+        got = patch.descriptor(*a)
+        again = patch.descriptor(*a)
+        want = patch.descriptor_plain(*a)
+        torch.cuda.synchronize()
+        scale = want.abs().amax((-2, -1), keepdim=True).clamp_min(1e-30)
+        rel = float(((got - want).abs() / scale).max())
+        ok = rel <= 2e-5 and bool(torch.equal(got, again)) \
+            and not bool(got[~te.valid].any())
+        bad += not ok
+        emit("descriptor_check", detector=det, slots=list(te.x.shape),
+             features=int(te.valid.sum()), raw_max_rel_err=rel,
+             same_bits_twice=bool(torch.equal(got, again)),
+             zeros_on_invalid=not bool(got[~te.valid].any()))
+        scenes[det] = (a, te)
+    if bad:
+        sys.exit(f"{bad} checks failed")
+    if args.quick:
+        return
+    torch.cuda.synchronize()
+
+    # ---- timings ----------------------------------------------------------
+    for det, (a, te) in scenes.items():
+        none = torch.zeros_like(te.valid)
+        emit("descriptor_ms", detector=det, features=int(te.valid.sum()),
+             ms=time_ms(lambda: patch.descriptor(*a)),
+             empty_table_ms=time_ms(lambda: patch.descriptor(
+                 *a[:4], none, *a[5:])))
+    # what a launch costs before any filtering, and what a transition adds
+    th_ = taps["hessian"]
+    for shape in [(16, 30, 40), (16, 480, 640)]:
+        x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev)
+        emit("chain_parts_ms", shape=shape,
+             copy_only=time_ms(lambda: conv.octave_chain(x, [])),
+             taps_11=time_ms(lambda: conv.octave_chain(x, th_[:1])),
+             taps_21=time_ms(lambda: conv.octave_chain(x, th_[3:])),
+             taps_11_13=time_ms(lambda: conv.octave_chain(x, th_[:2])),
+             blur_11=time_ms(lambda: conv.blur(x, th_[0])),
+             blur_21=time_ms(lambda: conv.blur(x, th_[3])))
+    # the host's planning of one chain: a new batch size each time misses the
+    # plan cache, the same arguments again hit it
+    probe = torch.empty((1, 480, 640), device=dev)
+    t0 = time.perf_counter()
+    for b in range(1, 65):
+        conv.octave_chain_groups(probe.expand(b, -1, -1), th_)
+    miss = (time.perf_counter() - t0) / 64
+    t0 = time.perf_counter()
+    for _ in range(64):
+        conv.octave_chain_groups(probe, th_)
+    hit = (time.perf_counter() - t0) / 64
+    emit("chain_plan_host_us", cache_miss=miss * 1e6, cache_hit=hit * 1e6)
+
+    octaves = [(16, 480, 640), (16, 240, 320), (16, 120, 160), (16, 60, 80),
+               (16, 30, 40)]
+    inputs = {shape: torch.from_numpy(
+        rng.rand(*shape).astype(np.float32)).to(dev) for shape in octaves}
+    rows = {(det, shape): {"chosen": time_ms(
+        lambda: conv.octave_chain(inputs[shape], taps[det]))}
+        for det in taps for shape in octaves}
+
+    # One tile at a time: a copy of conv.cu whose tile list holds that tile
+    # only, compiled into a library of its own that takes the place of the
+    # wrappers' library while the tile is timed.
+    source = (build.CSRC_DIR / "conv.cu").read_text()
+    nvcc = build._find_nvcc()
+    for name in args.tiles.split(","):
+        th, tw = map(int, name.split("x"))
+        text = source
+        for array, value in (("kTileH", th), ("kTileW", tw)):
+            text, n = re.subn(r"constexpr int %s\[\] = \{[^}]*\};" % array,
+                              "constexpr int %s[] = {%d};" % (array, value),
+                              text)
+            if n != 1:
+                sys.exit(f"conv.cu: no tile list {array} to replace")
+        cu = build.BUILD_DIR / f"conv_tile_{name}.cu"
+        cu.write_text(text)
+        so = cu.with_suffix(".so")
+        subprocess.run([nvcc, *build.NVCC_FLAGS, "-shared", str(cu), "-o",
+                        str(so)], check=True)
+        build._lib = ctypes.CDLL(str(so))
+        build._functions.clear()
+        for (det, shape), row in rows.items():
+            # the whole chain must fit one launch's shared memory (else the
+            # kernel runs it in groups, or refuses a single transition)
+            halo = sum(len(tp) // 2 for tp in taps[det])
+            rows0 = min(shape[1], th + 2 * halo)
+            cols0 = min(shape[2], tw + 2 * halo)
+            cols1 = min(shape[2], tw + 2 * (halo - len(taps[det][0]) // 2))
+            if 4 * (rows0 * ((cols0 | 1) + (cols1 | 1)) + 8 * 33) > 232448:
+                continue
+            x = inputs[shape]
+            if conv.octave_chain_groups(x, taps[det]) != 1:
+                continue
+            if not torch.equal(conv.octave_chain(x, taps[det]),
+                               conv.octave_chain_plain(x, taps[det])):
+                sys.exit(f"tile {name}: chain differs at {shape} ({det})")
+            row[name] = time_ms(lambda: conv.octave_chain(x, taps[det]),
+                                reps=5)
+    for (det, shape), row in rows.items():
+        emit("chain_ms", detector=det, shape=shape, **row)
+
+if __name__ == "__main__":
+    main()

@@ -69,7 +69,7 @@ def main():
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         on = [one() for _ in range(args.iters)]
 
-    own = ("blur_kernel", "copy_planes_kernel", "downsample2",
+    own = ("blur_kernel", "chain_kernel", "downsample2",
            "detect_kernel", "orientation_kernel", "descriptor_kernel")
     span_names = ("BUILD_PYRAMID", "DETECT_KEYPOINTS",
                   "GENERATE_FEATURE_LIST", "FEATURES_REDUCTION",

@@ -80,6 +80,32 @@ def test_octave_chain_kernel_equals_plain(card, shape, detector):
     assert torch.equal(got, conv.octave_chain_plain(x, taps_list))
 
 
+@pytest.mark.parametrize("shape", [(3, 30, 40), (1, 101, 75), (2, 200, 264)],
+                         ids=str)
+@pytest.mark.parametrize("detector", ["hessian", "dog"])
+@pytest.mark.parametrize("variant", ["33-taps", "identity", "default-taps"])
+def test_octave_chain_kernel_beyond_the_default(card, shape, detector,
+                                                variant):
+    """An image smaller than the chain's halo, an odd one and one that no
+    tile of the kernel's list divides (200 x 264: ragged tiles on both axes),
+    with four 33-tap transitions (cumulative halo 64: groups of levels where
+    the image is larger than a tile plus the halo), with an identity
+    transition, and with the detector's own taps."""
+    x = _planes(shape, 8, card)
+    taps_list = gaussian.chain_taps(SiftConfig(detector=detector).scale_params())
+    if variant == "33-taps":
+        taps_list = [gaussian_taps(5.0)] * 4
+    elif variant == "identity":
+        taps_list = [taps_list[0], (), *taps_list[1:]]
+    got = conv.octave_chain(x, taps_list)
+    groups = conv.octave_chain_groups(x, taps_list)
+    assert torch.equal(got, conv.octave_chain_plain(x, taps_list))
+    if variant == "33-taps" and shape[1] >= 200:
+        assert groups >= 2
+    else:
+        assert groups == 1
+
+
 @pytest.mark.parametrize("shape", SHAPES + [(2, 31, 33)], ids=str)
 def test_downsample2_kernel_equals_plain(card, shape):
     x = _planes(shape, 3, card)
@@ -200,6 +226,31 @@ def test_descriptor_kernel_against_plain(card, shape, detector):
         assert float((a - b).abs().max()) <= 2e-6
         norms = a[t.valid].norm(dim=-1)
         assert float((norms - 1).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("table", ["all-invalid", "single-slot"])
+def test_descriptor_kernel_sparse_tables(card, table):
+    """A table with no valid slot gives zeros everywhere; a single valid slot
+    (not at the front of its row) gives its descriptor there and zeros
+    elsewhere, the same bits twice."""
+    cfg, t, maps, owin, dwin = _keypoint_scene(card, (2, 160, 200), "hessian",
+                                               threshold=0.002)
+    theta = tpyr.orient_table(t, maps, cfg, owin, True).thetas[..., 0] \
+        .contiguous()
+    full = patch.descriptor(t.x, t.y, t.sigma, theta, t.valid, t.level_id,
+                            maps, dwin)
+    valid = torch.zeros_like(t.valid)
+    if table == "single-slot":
+        assert bool(t.valid[1, 2])
+        valid[1, 2] = True
+    args = (t.x, t.y, t.sigma, theta, valid, t.level_id, maps, dwin)
+    got = patch.descriptor(*args)
+    assert torch.equal(got, patch.descriptor(*args))
+    assert not bool(got[~valid].any())
+    if table == "single-slot":
+        assert torch.equal(got[1, 2], full[1, 2]) and bool(got[1, 2].any())
+        want = patch.descriptor_plain(*args)
+        assert float((got - want).abs().max()) <= VOTE_TOL * float(want.max())
 
 
 def test_patch_wrappers_refuse_what_the_kernels_do_not_take(card):
