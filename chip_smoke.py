@@ -24,7 +24,9 @@ there is no device, and on any failed phase. Phases, one JSON line each:
              default configuration (orientations, descriptors)
   describe   describe_keypoints on the card fed frame 0's own keypoints
   {"kernels": [...]}   one entry per kernel: launches on the main path,
-             error, times, bound
+             error, times, bound; path_ms and path_bound_ms sum a batch's
+             launches (every octave shape); detect_octave adds the bounds
+             of every map written densely and its first gate's warp shares
   <name>, <power limit>
   {"ok": true, "device": {...}}
 """
@@ -70,6 +72,10 @@ EXPECTED_LAUNCHES = {"blur": 1, "octave_chain": 5, "downsample2": 4,
                      "detect_octave": 5, "orientation": 0, "descriptor": 0}
 EXPECTED_LAUNCHES_DEFAULT = dict(EXPECTED_LAUNCHES, orientation=1,
                                  descriptor=1)
+# per-kernel details that the kernels line carries where a kernel has them
+DETAIL = ("octave_ms", "valid_cells", "bound_ms_dense_contract",
+          "path_bound_ms_dense_contract", "octave0_warp_share_nms",
+          "octave0_warp_share_keypoint")
 KERNEL_INFO = {
     "blur": ("hessgpu_tpu_torch/csrc/conv.cu",
              "hessgpu_tpu/ops/pallas/conv.py:381"),
@@ -109,7 +115,7 @@ def main():
                                    detect_batch, make_plan, to_numpy_trimmed)
     from hessgpu_tpu_torch import pyramid as tpyr
     from hessgpu_tpu_torch.features import FeatureTable
-    from hessgpu_tpu_torch.ops import gaussian
+    from hessgpu_tpu_torch.ops import gaussian, hessian
     from hessgpu_tpu_torch.ops.cuda import (build, conv, detect,
                                             launch_counts, patch,
                                             reset_launch_counts)
@@ -196,8 +202,12 @@ def main():
         gm, ggrad, grot = detect.detect_octave(*args, **kw)
         wm, wgrad, wrot = detect.detect_octave_plain(*args, **kw)
         torch.cuda.synchronize()
-        for f in ("valid", "ftype", "response", "dx", "dy", "ds"):
-            must_equal("detect_octave", f, getattr(gm, f), getattr(wm, f))
+        # the kernel's contract: valid everywhere, the payload at the valid
+        # cells only (elsewhere its maps hold what torch.empty gave)
+        must_equal("detect_octave", "valid", gm.valid, wm.valid)
+        for f in ("ftype", "response", "dx", "dy", "ds"):
+            must_equal("detect_octave", f"{f} at the valid cells",
+                       getattr(gm, f)[wm.valid], getattr(wm, f)[wm.valid])
         # grad: sqrt is IEEE on both sides, 1e-6 relative allows a last-bit
         # difference; rot: atan2f vs torch.atan2 may differ in the last bit,
         # 2e-6 rad
@@ -499,42 +509,97 @@ def main():
         bound=bound(8 * n0, 4 * len(taps0) * n0))
     timing["blur"]["path_ms"] = timing["blur"]["ms"]
 
-    chain_ms, down_ms, det_ms = [], [], []
+    # Bounds of the multi-launch kernels, per launch at each octave's shape;
+    # a path bound is their sum over the launches of one batch.
+    def chain_bound(n):
+        # reads the base once, writes L levels; per level 2 passes of taps
+        return bound(4 * n * (1 + L), 4 * sum(chain_taps_n) * n)
+
+    def down_bound(n):
+        # reads the kept quarter of the pixels, writes them; no arithmetic
+        return bound(8 * n, 0)
+
+    def detect_bound(n, n_valid):
+        # reads L Gaussian planes; writes per key level valid (1 byte), grad
+        # and rot (4 bytes each) at every pixel and the payload (response,
+        # dx, dy, ds, ftype: 20 bytes) at this run's valid cells. About 13
+        # float ops per response plane and pixel, 30 per key level and
+        # pixel (threshold, gradient, angle), 170 per valid cell (NMS, edge
+        # test, 3x3 solve, typing)
+        return bound(n * (4 * L + 9 * NK) + 20 * n_valid,
+                     n * (13 * L + 30 * NK) + 170 * n_valid)
+
+    def detect_bound_dense(n):
+        # the dense contract: all eight maps at every pixel, the whole
+        # test at every pixel and key level
+        return bound(n * (4 * L + 29 * NK), n * (13 * L + 170 * NK))
+
+    n_oct = [BATCH * h * w for h, w in plan.octave_shapes]
+    chain_ms, down_ms, det_ms, det_valid = [], [], [], []
     for o, stack in enumerate(octaves):
         chain_ms.append(time_ms(
             lambda: conv.octave_chain(bases[o], taps_list)))
+        det_valid.append(int(detect.detect_octave(
+            stack, norms, p.key_levels, **dkw)[0].valid.sum()))
         det_ms.append(time_ms(
             lambda: detect.detect_octave(stack, norms, p.key_levels, **dkw)))
         if o + 1 < len(octaves):
             down_ms.append(time_ms(
                 lambda: conv.downsample2(stack[:, lds])))
     timing["octave_chain"] = dict(
-        shape=list(octaves[0].shape), ms=chain_ms[0],
+        shape=list(octaves[0].shape), ms=chain_ms[0], octave_ms=chain_ms,
         path_ms=sum(chain_ms),
         plain_ms=time_ms(
             lambda: conv.octave_chain_plain(bases[0], taps_list)),
-        library_ms=None,
-        # reads the base once, writes L levels; per level 2 passes of taps
-        bound=bound(4 * n0 * (1 + L), 4 * sum(chain_taps_n) * n0))
+        library_ms=None, bound=chain_bound(n0),
+        path_bound_ms=sum(chain_bound(n)[0] for n in n_oct))
     src0 = octaves[0][:, lds]
-    nq = BATCH * ((HEIGHT + 1) // 2) * ((WIDTH + 1) // 2)
+    n_down = [BATCH * ((h + 1) // 2) * ((w + 1) // 2)
+              for h, w in plan.octave_shapes[:-1]]
     timing["downsample2"] = dict(
-        shape=list(src0.shape), ms=down_ms[0], path_ms=sum(down_ms),
+        shape=list(src0.shape), ms=down_ms[0], octave_ms=down_ms,
+        path_ms=sum(down_ms),
         plain_ms=time_ms(lambda: conv.downsample2_plain(src0)),
         # the one PyTorch call that computes the same function
         library_ms=time_ms(lambda: src0[..., ::2, ::2].contiguous()),
-        # reads the kept quarter of the pixels, writes them; no arithmetic
-        bound=bound(8 * nq, 0))
+        bound=down_bound(n_down[0]),
+        path_bound_ms=sum(down_bound(n)[0] for n in n_down))
+
+    def detect_gate_shares(stack):
+        """The kernel's first gate on one octave: the share of warp passes
+        (32 adjacent columns of one row, one key level) with a lane inside
+        the border whose |response| passes the threshold - they run the
+        NMS - and the share that holds a keypoint. A function, so that its
+        temporaries are gone before the main path's peak memory is read."""
+        def warp_share(m):
+            seg = torch.nn.functional.pad(m, (0, (-m.shape[-1]) % 32))
+            return float(seg.reshape(m.shape[:-1] + (-1, 32)).any(-1)
+                         .float().mean())
+
+        valid = detect.detect_octave(stack, norms, p.key_levels,
+                                     **dkw)[0].valid
+        resp = hessian.hessian_response_and_gradient(
+            stack, norms, grad_levels=p.key_levels)[0][:, p.key_levels]
+        interior = torch.zeros(resp.shape[-2:], dtype=torch.bool, device=dev)
+        interior[1:-1, 1:-1] = True
+        thr0 = 0.8 * p.threshold if dkw["subpixel"] else p.threshold
+        return warp_share(interior & (resp.abs() > thr0)), warp_share(valid)
+
+    share_nms, share_keypoint = detect_gate_shares(octaves[0])
     timing["detect_octave"] = dict(
-        shape=list(octaves[0].shape), ms=det_ms[0], path_ms=sum(det_ms),
+        shape=list(octaves[0].shape), ms=det_ms[0], octave_ms=det_ms,
+        path_ms=sum(det_ms),
         plain_ms=time_ms(lambda: detect.detect_octave_plain(
             octaves[0], norms, p.key_levels, **dkw)),
-        library_ms=None,
-        # reads L Gaussian planes, writes per key level 7 4-byte maps and
-        # one byte map; about 13 float ops per response plane and pixel and
-        # 170 per key level and pixel (27-neighbour test, edge test, 3x3
-        # solve, typing, gradient)
-        bound=bound(n0 * (4 * L + 29 * NK), n0 * (13 * L + 170 * NK)))
+        library_ms=None, valid_cells=det_valid,
+        bound=detect_bound(n0, det_valid[0]),
+        path_bound_ms=sum(detect_bound(n, v)[0]
+                          for n, v in zip(n_oct, det_valid)),
+        bound_ms_dense_contract=detect_bound_dense(n0)[0],
+        path_bound_ms_dense_contract=sum(detect_bound_dense(n)[0]
+                                         for n in n_oct),
+        octave0_warp_share_nms=share_nms,
+        octave0_warp_share_keypoint=share_keypoint)
     # the per-keypoint kernels at the main path's tables. Bound: each valid
     # keypoint's contributing pixels read once from both maps, the table read
     # once, the outputs written once; operations per contributing pixel as
@@ -575,10 +640,13 @@ def main():
                     DESC_FLOPS_PER_PIXEL * px_desc))
     for name in ("orientation", "descriptor"):
         timing[name]["path_ms"] = timing[name]["ms"]
+    for name in ("blur", "orientation", "descriptor"):   # one launch a batch
+        timing[name]["path_bound_ms"] = timing[name]["bound"][0]
     emit("kernels",
          max_abs_err=errs, detect=detect_errs,
          exact=["blur", "octave_chain", "downsample2",
-                "detect_octave: valid ftype response dx dy ds"],
+                "detect_octave: valid; ftype response dx dy ds at the "
+                "valid cells"],
          tolerances={"grad_rel": 1e-6, "rot_abs": 2e-6,
                      "votes_and_raw_descriptor_rel": VOTE_TOL,
                      "normalized_descriptor_abs": DESC_TOL},
@@ -836,7 +904,9 @@ def main():
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
-            "shape": t["shape"], "path_ms": t["path_ms"]})
+            "shape": t["shape"], "path_ms": t["path_ms"],
+            "path_bound_ms": t["path_bound_ms"],
+            **{k: t[k] for k in DETAIL if k in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -87,7 +87,8 @@ def compact_octave_keypoints(maps, sigmas, sigma_step: float,
     (ComputeOrientation_Kernel, ProgramCU.cu:1281-1298), scale =
     level_sigma * sigma_step**ds. sigmas: the NK level sigmas, as floats or
     as one f32 tensor on the maps' device (saves a host-to-device copy per
-    call).
+    call). Only valid cells of response, dx, dy, ds and ftype reach the
+    result: the detect kernel leaves the others undefined.
     """
     h, w = maps.valid.shape[-2:]
     flat = lambda a: a.reshape(a.shape[:-2] + (h * w,))

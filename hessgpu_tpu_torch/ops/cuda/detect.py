@@ -6,6 +6,13 @@ for a tensor on the CPU, and only then, it returns detect_octave_plain, the
 plain PyTorch version built from ops/hessian.py + ops/keypoint.py. Nothing
 falls back from a failed build or launch. Every octave size goes through the
 kernel: there is no small-octave gate.
+
+The two differ in one way, by contract: the kernel writes the keypoint
+payload (response, dx, dy, ds, ftype) only at cells where valid is set and
+leaves the rest of those maps as torch.empty gave them; the plain version
+keeps them dense, with zeros and TYPE_NONE off the keypoints. valid, grad
+and rot are dense on both. Read the payload at valid cells only, as
+ops/compaction.py does.
 """
 
 from __future__ import annotations
@@ -99,6 +106,8 @@ def detect_octave(
     level the keypoint test (response, 3x3x3 NMS, threshold incl.
     darkness_adaption, edge test, subpixel solve, typing; response rounded
     through fp16) and the gradient magnitude/angle of its Gaussian plane.
+    On a CUDA tensor the maps' response, dx, dy, ds and ftype hold defined
+    values only where valid is set (see the module docstring).
     detector: "hessian" (det-of-Hessian * norm, sign-consistent NMS,
     saddle/blob typing) or "dog" (response[l] = gauss[l+1] - gauss[l],
     bright/dark typing by extremum sign).
