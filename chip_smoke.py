@@ -22,11 +22,16 @@ there is no device, and on any failed phase. Phases, one JSON line each:
              counts and against a CPU run; Hessian then DoG, first in the
              detection-only upright configuration (-sd -ofix), then in the
              default configuration (orientations, descriptors)
+  compaction the row-capped compaction of a flooded (16, 3, 480, 640) octave
+             on the card against the same on the CPU
   describe   describe_keypoints on the card fed frame 0's own keypoints
+  blur       the octave-0 blur's ms beside the card's name and power limit
   {"kernels": [...]}   one entry per kernel: launches on the main path,
              error, times, bound; path_ms and path_bound_ms sum a batch's
-             launches (every octave shape); detect_octave adds the bounds
-             of every map written densely and its first gate's warp shares
+             launches (every octave shape); blur adds its path per detector
+             and its times at the smaller octave shapes and with 33 taps;
+             detect_octave adds the bounds of every map written densely and
+             its first gate's warp shares
   <name>, <power limit>
   {"ok": true, "device": {...}}
 """
@@ -73,7 +78,9 @@ EXPECTED_LAUNCHES = {"blur": 1, "octave_chain": 5, "downsample2": 4,
 EXPECTED_LAUNCHES_DEFAULT = dict(EXPECTED_LAUNCHES, orientation=1,
                                  descriptor=1)
 # per-kernel details that the kernels line carries where a kernel has them
-DETAIL = ("octave_ms", "valid_cells", "bound_ms_dense_contract",
+DETAIL = ("segment_rows", "path_ms_by_detector", "restart_blurs_by_detector",
+          "octave_shape_ms", "ms_33_taps",
+          "octave_ms", "valid_cells", "bound_ms_dense_contract",
           "path_bound_ms_dense_contract", "octave0_warp_share_nms",
           "octave0_warp_share_keypoint")
 KERNEL_INFO = {
@@ -240,6 +247,11 @@ def main():
         lds = p.level_ds - p.level_min
         keys = 0
         for o, (oh, ow) in enumerate(plan.octave_shapes):
+            if o > 0:   # the blur at every octave shape, 13 and 33 taps
+                for taps in (taps0, gaussian_taps(5.0)):
+                    must_equal("blur", "octave shape", conv.blur(base, taps),
+                               conv.blur_plain(base, taps))
+                    checked["blur"] += 1
             stack = conv.octave_chain(base, taps_list)
             must_equal("octave_chain", "stack", stack,
                        conv.octave_chain_plain(base, taps_list))
@@ -499,15 +511,43 @@ def main():
     lib_err = max_abs(blur_library(), conv.blur(imgs, taps0))
     if lib_err > 2e-3:
         fail(f"blur: the library convolution is {lib_err} away")
+
+    def blur_bound(x, taps):
+        # reads the planes once, writes them once; 2 passes of `taps`
+        # multiply-adds
+        return bound(8 * x.numel(), 4 * len(taps) * x.numel())
+
+    def blur_path(cfg):
+        """The blur launches of one batch of cfg's main path: the initial
+        blur, and a restart blur at every later octave where the scale
+        schedule has one (octave_restart_sigma() is 0 for both
+        personalities: level_ds - num_scales == level_min). Returns (ms,
+        bound ms, restart launches), each launch timed at its own shape."""
+        q = cfg.scale_params()
+        calls = [(imgs, gaussian_taps(q.initial_blur_sigma(cfg.first_octave),
+                                      q.filter_width_factor))]
+        if q.octave_restart_sigma() > 0:
+            rt = gaussian_taps(q.octave_restart_sigma(), q.filter_width_factor)
+            calls += [(b, rt) for b in bases[1:]]
+        return (sum(time_ms(lambda: conv.blur(x, t)) for x, t in calls),
+                sum(blur_bound(x, t)[0] for x, t in calls), len(calls) - 1)
+
+    blur_h, blur_d = blur_path(cfg_h), blur_path(cfg_d)
     timing["blur"] = dict(
         shape=[BATCH, HEIGHT, WIDTH, len(taps0)],
         ms=time_ms(lambda: conv.blur(imgs, taps0)),
         plain_ms=time_ms(lambda: conv.blur_plain(imgs, taps0)),
         library_ms=time_ms(blur_library), library_max_abs_err=lib_err,
-        # reads the image once, writes it once; 2 passes of `taps`
-        # multiply-adds
-        bound=bound(8 * n0, 4 * len(taps0) * n0))
-    timing["blur"]["path_ms"] = timing["blur"]["ms"]
+        bound=blur_bound(imgs, taps0),
+        path_ms=blur_h[0], path_bound_ms=blur_h[1],
+        path_ms_by_detector={"hessian": blur_h[0], "dog": blur_d[0]},
+        restart_blurs_by_detector={"hessian": blur_h[2], "dog": blur_d[2]},
+        segment_rows=conv.blur_segment_rows(imgs),
+        # the same 13 taps at the smaller octave shapes, and the widest
+        # filter at the main path's shape
+        octave_shape_ms=[time_ms(lambda: conv.blur(b, taps0))
+                         for b in bases[1:]],
+        ms_33_taps=time_ms(lambda: conv.blur(imgs, gaussian_taps(5.0))))
 
     # Bounds of the multi-launch kernels, per launch at each octave's shape;
     # a path bound is their sum over the launches of one batch.
@@ -640,7 +680,7 @@ def main():
                     DESC_FLOPS_PER_PIXEL * px_desc))
     for name in ("orientation", "descriptor"):
         timing[name]["path_ms"] = timing[name]["ms"]
-    for name in ("blur", "orientation", "descriptor"):   # one launch a batch
+    for name in ("orientation", "descriptor"):   # one launch a batch
         timing[name]["path_bound_ms"] = timing[name]["bound"][0]
     emit("kernels",
          max_abs_err=errs, detect=detect_errs,
@@ -659,6 +699,59 @@ def main():
          timing_ms={k: {kk: vv for kk, vv in v.items() if kk != "bound"}
                     for k, v in timing.items()},
          reps=REPS, l2_flushed=True)
+
+    # ---- compaction: the per-row candidate cap on the card -------------------
+    def check_row_cap():
+        """compact_octave_keypoints of a flooded (16, 3, 480, 640) octave on
+        the card against the same on the CPU: key level 0 has rows of 214
+        candidates (the cap keeps 32), level 1 sparse cells only, level 2
+        so many capped rows that the level cap binds too. Every field but
+        sigma bit for bit. A function, so that its maps are gone before the
+        main path's peak memory is read."""
+        from hessgpu_tpu_torch.ops.compaction import (_row_cap,
+                                                      compact_octave_keypoints)
+        from hessgpu_tpu_torch.ops.keypoint import KeypointMaps
+        g = np.random.RandomState(9)
+        shape = (BATCH, 3, HEIGHT, WIDTH)
+        valid = g.rand(*shape) < 0.002
+        valid[:, 0, ::37, ::3] = True
+        valid[:, 2, ::5, ::2] = True
+        f = lambda: torch.from_numpy(
+            g.rand(*shape).astype(np.float32) * 1.9 - 0.95)
+        cpu_maps = KeypointMaps(
+            valid=torch.from_numpy(valid), response=f(), dx=f(), dy=f(),
+            ds=f(), ftype=torch.from_numpy(g.randint(0, 3, shape)
+                                           .astype(np.int32)))
+        cap = plan.level_caps[0]
+        sig = [p.key_level_sigma(k) for k in p.key_levels]
+        want = compact_octave_keypoints(cpu_maps, sig, p.sigmak, cap)
+        got = compact_octave_keypoints(
+            KeypointMaps(*(a.to(dev) for a in cpu_maps)), sig, p.sigmak, cap)
+        torch.cuda.synchronize()
+        for fld in ("valid", "x", "y", "theta", "response", "ftype"):
+            if not same(getattr(got, fld).cpu(), getattr(want, fld)):
+                fail(f"row-capped compaction: {fld} differs between the card "
+                     "and the CPU")
+        # sigma = level sigma * step**ds: pow may differ in the last bit
+        # between the two devices
+        sig_err = float(((got.sigma.cpu() - want.sigma).abs()
+                         / want.sigma.abs().clamp_min(1e-30)).max())
+        if sig_err > 1e-6:
+            fail(f"row-capped compaction: sigma {sig_err} apart (rel)")
+        kpr = min(WIDTH, _row_cap(WIDTH))
+        expect = np.minimum(valid.sum(-1), kpr).sum(-1).clip(max=cap)
+        counts = want.count().numpy()
+        if not (counts == expect).all() or counts[0, 0] >= valid[0, 0].sum() \
+                or counts[0, 2] != cap:
+            fail(f"row-capped compaction: counts {counts[0].tolist()}, "
+                 f"expected {expect[0].tolist()}")
+        emit("compaction", shape=list(shape), capacity=cap, kpr=kpr,
+             frame0_valid_cells=valid[0].sum((-2, -1)).tolist(),
+             frame0_kept=counts[0].tolist(), card_equals_cpu=True,
+             sigma_max_rel_err=sig_err,
+             sigma_bit_equal=bool(same(got.sigma.cpu(), want.sigma)))
+
+    check_row_cap()
 
     # ---- main path ----------------------------------------------------------
     def table_fields(t):
@@ -893,6 +986,10 @@ def main():
          desc_max_abs_diff_with_theta=float(dd4.max()),
          share_within_1e_5_with_theta=float((dd4 <= 1e-5).mean()),
          launches=describe_launches)
+
+    emit("blur", octave0_ms=timing["blur"]["ms"],
+         path_ms_by_detector=timing["blur"]["path_ms_by_detector"],
+         nvidia_smi=smi_line)
 
     # ---- result -------------------------------------------------------------
     kernels = []

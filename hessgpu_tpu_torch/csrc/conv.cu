@@ -14,11 +14,44 @@
 // blur and decimation are bound by bytes: a 13-tap separable filter does 52
 // operations per pixel against 8 bytes moved, decimation none at all. Each
 // reads every input pixel from device memory once (plus a halo) and writes
-// every output pixel once. The blur stages its tile plus the halo in shared
-// memory with the index clamped to the image (no edge-padded copy in device
-// memory), runs the horizontal pass into a second shared tile and the
-// vertical pass out of it. Decimation reads the source plane through its
+// every output pixel once. Decimation reads the source plane through its
 // batch and row strides, so a plane of the level stack is decimated in place.
+//
+// The blur, one launch of (B, H, W):
+//  * A block owns a column strip of 64 output columns of one plane and walks
+//    down a segment of its rows in steps of 32 rows. Each step's input rows
+//    of the strip, with the horizontal halo (the column index clamped to the
+//    image), are staged with asynchronous copies into one of kBlurStages = 2
+//    shared buffers a step ahead: the copies of step s+1 are in flight
+//    during step s's passes (3 buffers, copies two steps ahead, measured 3%
+//    faster at 16 x 480 x 640, 4 no faster: PERF.md).
+//  * The horizontal pass writes its rows into a ring of 64 shared rows,
+//    slot = row & 63. The vertical pass reads its taps from the ring, the
+//    row index clamped to the image (a clamped row's horizontal result is
+//    the edge row's), so every horizontal row of a segment is computed once:
+//    the halo rows are recomputed once per segment (2r rows of every SH),
+//    not once per 32-row tile. 64 slots hold the 32 new rows and the
+//    2r <= 32 rows of the vertical halo.
+//  * Both passes are register-blocked with the chain's `fir` (8 outputs a
+//    thread from a window of taps + 7 values, each read from shared memory
+//    once). Horizontal: lane = row, warp = group of 8 columns, odd row
+//    pitches, so no bank conflicts. Vertical: lane = column, so loads are
+//    free of conflicts and stores coalesced. No division runs per element.
+//  * The strip and the step are fixed (64 x 32, 256 threads, 48 registers,
+//    dynamic shared memory sized by the radius: 36.5 KB at r = 6, 41.6 KB at
+//    r = 16; 5 blocks an SM). The segment height is the one choice: the
+//    fewest segments that give the card kBlurBlocksPerSM = 4 blocks an SM,
+//    no more than one per 32 rows, so that the grid is one wave of 5 blocks
+//    an SM at the main path's shapes. 16 x 480 x 640 (the initial blur) gets
+//    4 segments of 120 rows, 640 blocks; a 16-plane 30 x 40 stack one
+//    segment of the whole height, 16 blocks. Halo work per pixel: (64 + 2r)
+//    / 64 staged columns, (SH + 2r) / SH horizontal rows (1.19 and 1.10 at
+//    r = 6, 120-row segments).
+//  * What bounds it (scripts/torch_kernel_tuning.py, PERF.md): float32
+//    instruction throughput (52 unfused operations a pixel, ~75
+//    instructions with the loads and indices) and the staging copies, which
+//    overlap the passes poorly: taking out any one of staging, horizontal
+//    pass and vertical pass saves about as much as that phase costs alone.
 //
 // The chain is bound by bytes and operations about alike: L+1 planes moved,
 // and 4 unfused operations per tap and pixel (248 per pixel for the default
@@ -72,8 +105,6 @@ namespace {
 
 constexpr int kMaxTaps = 33;   // params.KERNEL_MAX_WIDTH
 constexpr int kMaxR = kMaxTaps / 2;
-constexpr int kTW = 64;        // output tile
-constexpr int kTH = 32;
 constexpr int kThreads = 256;
 
 struct Taps {
@@ -83,55 +114,6 @@ struct Taps {
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
     return min(max(v, lo), hi);
-}
-
-// One separable blur of B planes. Plane b starts at in + b*in_bs (rows are W
-// apart) and is written to out + b*out_bs.
-__global__ void __launch_bounds__(kThreads)
-blur_kernel(const float* __restrict__ in, float* __restrict__ out,
-            long long in_bs, long long out_bs, int H, int W, Taps taps) {
-    __shared__ float s_in[(kTH + 2 * kMaxR) * (kTW + 2 * kMaxR)];
-    __shared__ float s_h[(kTH + 2 * kMaxR) * kTW];
-
-    const int r = taps.n / 2;
-    const int iw = kTW + 2 * r;
-    const int ih = kTH + 2 * r;
-    const int col0 = blockIdx.x * kTW;
-    const int row0 = blockIdx.y * kTH;
-    const float* src = in + (long long)blockIdx.z * in_bs;
-    float* dst = out + (long long)blockIdx.z * out_bs;
-
-    // tile + halo, index clamped to the image (clamp-to-edge borders)
-    for (int i = threadIdx.x; i < ih * iw; i += kThreads) {
-        const int ty = i / iw, tx = i - ty * iw;
-        const int gy = clampi(row0 + ty - r, 0, H - 1);
-        const int gx = clampi(col0 + tx - r, 0, W - 1);
-        s_in[i] = src[(long long)gy * W + gx];
-    }
-    __syncthreads();
-
-    // horizontal pass over all ih rows (the vertical pass needs the halo
-    // rows; a clamped row's horizontal result is the edge row's)
-    for (int i = threadIdx.x; i < ih * kTW; i += kThreads) {
-        const int ty = i / kTW, tx = i - ty * kTW;
-        const float* p = s_in + ty * iw + tx;
-        float acc = taps.t[0] * p[0];
-        for (int k = 1; k < taps.n; ++k) acc = acc + taps.t[k] * p[k];
-        s_h[i] = acc;
-    }
-    __syncthreads();
-
-    // vertical pass
-    for (int i = threadIdx.x; i < kTH * kTW; i += kThreads) {
-        const int ty = i / kTW, tx = i - ty * kTW;
-        const int gy = row0 + ty, gx = col0 + tx;
-        if (gy < H && gx < W) {
-            const float* p = s_h + ty * kTW + tx;
-            float acc = taps.t[0] * p[0];
-            for (int k = 1; k < taps.n; ++k) acc = acc + taps.t[k] * p[k * kTW];
-            dst[(long long)gy * W + gx] = acc;
-        }
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -199,6 +181,141 @@ __device__ __forceinline__ void fir(At at, const float* __restrict__ ts,
             }
         }
     }
+}
+
+// ---------------------------------------------------------------------------
+// blur: column strips walked down row segments (see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int kBW = 64;                  // output columns of a strip
+constexpr int kBH = 32;                  // rows a step stages and filters
+constexpr int kBlurStages = 2;           // input buffers: copies run ahead
+constexpr int kRing = 64;                // rows of horizontal results kept
+constexpr int kRingPitch = kBW + 1;      // odd: lanes on rows hit all banks
+constexpr int kBlurBlocksPerSM = 4;
+static_assert(kRing >= kBH + 2 * kMaxR, "ring too small for the halo");
+static_assert((kRing & (kRing - 1)) == 0, "ring slots are row & (kRing-1)");
+static_assert(kBW == 8 * (kThreads / 32) && kBH == 32,
+              "horizontal pass: lane = row, warp = 8 columns");
+
+// Dynamic shared memory of a blur with radius r: the taps (kMaxTaps floats,
+// padded to 36), kBlurStages input buffers of kBH rows at an odd pitch, the
+// ring.
+__host__ __device__ constexpr int blur_pitch(int r) {
+    return (kBW + 2 * r) | 1;
+}
+__host__ __device__ constexpr int blur_smem_floats(int r) {
+    return 36 + kBlurStages * kBH * blur_pitch(r) + kRing * kRingPitch;
+}
+
+// One separable blur of B contiguous (H, W) planes; block (strip, segment,
+// plane) writes columns [64 strip, +64) of rows [SH segment, +SH).
+__global__ void __launch_bounds__(kThreads)
+blur_kernel(const float* __restrict__ in, float* __restrict__ out, int H,
+            int W, int SH, const __grid_constant__ Taps taps) {
+    constexpr int K = kChainOut;
+    extern __shared__ float blur_smem[];
+    const int n = taps.n, r = n / 2;
+    const int iw = kBW + 2 * r;                  // staged columns of a row
+    const int pitch = blur_pitch(r);
+    float* s_taps = blur_smem;
+    float* s_in = blur_smem + 36;                // kBlurStages buffers
+    float* s_ring = s_in + kBlurStages * kBH * pitch;
+
+    const int c0 = blockIdx.x * kBW;
+    const int R0 = blockIdx.y * SH, R1 = min(H, R0 + SH);
+    const long long plane = (long long)blockIdx.z * H * W;
+    const float* src = in + plane;
+    float* dst = out + plane;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (threadIdx.x < n) s_taps[threadIdx.x] = taps.t[threadIdx.x];
+
+    // Horizontal results of rows [hlo, hend) are computed once, step j
+    // taking rows [hlo + j kBH, +kBH). After a step every output row whose
+    // vertical taps (clamped) lie below the rows computed so far is written.
+    const int hlo = max(0, R0 - r), hend = min(H, R1 + r);
+    const int steps = (hend - hlo + kBH - 1) / kBH;
+    // the input rows of step j and their horizontal halo into buffer b,
+    // the column index clamped to the image; one group of asynchronous
+    // copies (empty past the last step). Thread t copies elements t, t +
+    // kThreads, ... of the rows x iw block, stepped without a division.
+    const int step_y = kThreads / iw, step_x = kThreads - step_y * iw;
+    const int first_y = threadIdx.x / iw, first_x = threadIdx.x - first_y * iw;
+    auto stage = [&](int j, int b) {
+        const int y0 = hlo + j * kBH;
+        const int rows = j < steps ? min(kBH, hend - y0) : 0;
+        const unsigned buf = (unsigned)__cvta_generic_to_shared(
+            s_in + b * kBH * pitch);
+        int ry = first_y, x = first_x;
+        for (int e = threadIdx.x; e < rows * iw; e += kThreads) {
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                         :: "r"(buf + 4u * (ry * pitch + x)),
+                            "l"(src + (long long)(y0 + ry) * W
+                                + clampi(c0 - r + x, 0, W - 1))
+                         : "memory");
+            x += step_x;
+            ry += step_y;
+            if (x >= iw) { x -= iw; ++ry; }
+        }
+        asm volatile("cp.async.commit_group;" ::: "memory");
+    };
+
+    for (int j = 0; j + 1 < kBlurStages; ++j) stage(j, j);
+    int odone = R0, cur = 0;
+    for (int j = 0; j < steps; ++j) {
+        stage(j + kBlurStages - 1,
+              cur == 0 ? kBlurStages - 1 : cur - 1);   // the buffer j-1 used
+        asm volatile("cp.async.wait_group %0;" :: "n"(kBlurStages - 1)
+                     : "memory");
+        __syncthreads();
+
+        const int hy = hlo + j * kBH, rows = min(kBH, hend - hy);
+        if (lane < rows) {   // horizontal: lane = row, warp = 8 columns
+            const float* p = s_in + cur * kBH * pitch + lane * pitch
+                + warp * K;
+            float acc[K];
+            fir([=](int m) { return p + m; }, s_taps, n, acc);
+            float* o = s_ring + ((hy + lane) & (kRing - 1)) * kRingPitch
+                + warp * K;
+#pragma unroll
+            for (int i = 0; i < K; ++i) o[i] = acc[i];
+        }
+        __syncthreads();
+
+        const int oend = hy + rows == H ? R1 : min(R1, hy + rows - r);
+        const int cx = threadIdx.x & (kBW - 1), gx = c0 + cx;
+        for (int y = odone + (threadIdx.x / kBW) * K; y < oend;
+             y += (kThreads / kBW) * K) {   // vertical: lane = column
+            const float* colp = s_ring + cx;
+            const int lo = y - r;
+            float acc[K];
+            if (lo >= 0 && lo + n + K - 1 <= H) {
+                fir([=](int m) {
+                        return colp + ((lo + m) & (kRing - 1)) * kRingPitch;
+                    }, s_taps, n, acc);
+            } else {
+                fir([=](int m) {
+                        return colp + (clampi(lo + m, 0, H - 1) & (kRing - 1))
+                            * kRingPitch;
+                    }, s_taps, n, acc);
+            }
+            if (gx < W) {
+                float* d = dst + (long long)y * W + gx;
+                if (y + K <= oend) {
+#pragma unroll
+                    for (int i = 0; i < K; ++i) d[(long long)i * W] = acc[i];
+                } else {
+#pragma unroll
+                    for (int i = 0; i < K; ++i)
+                        if (y + i < oend) d[(long long)i * W] = acc[i];
+                }
+            }
+        }
+        odone = oend;
+        __syncthreads();     // the ring slots and buffer cur are written next
+        cur = cur + 1 == kBlurStages ? 0 : cur + 1;
+    }
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
 // Horizontal pass of one level: rows [y0, y1) of buffer A, output columns
@@ -385,12 +502,6 @@ bool make_taps(const float* taps, int n, Taps* out) {
     return true;
 }
 
-void launch_blur(const float* in, float* out, long long in_bs, long long out_bs,
-                 int B, int H, int W, const Taps& taps, cudaStream_t s) {
-    dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
-    blur_kernel<<<grid, kThreads, 0, s>>>(in, out, in_bs, out_bs, H, W, taps);
-}
-
 constexpr size_t kMaxSmem = 232448;   // 227 KB a block may use on sm_90
 
 // the output tiles the cost model chooses from
@@ -500,8 +611,9 @@ std::mutex g_chain_mutex;
 std::vector<int> g_chain_sms;           // by device ordinal, 0 = not set up
 std::vector<PlanEntry> g_chain_plans;
 
-// SM count of the current device, which is ready to launch chain_kernel.
-cudaError_t chain_device(int* sms) {
+// SM count of the current device. The first call on a device also raises
+// chain_kernel's and blur_kernel's shared-memory limits there.
+cudaError_t sm_count(int* sms) {
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return e;
@@ -515,10 +627,30 @@ cudaError_t chain_device(int* sms) {
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)kMaxSmem);
         if (e != cudaSuccess) return e;
+        e = cudaFuncSetAttribute(blur_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 4 * blur_smem_floats(kMaxR));
+        if (e != cudaSuccess) return e;
         g_chain_sms[dev] = n;
     }
     *sms = g_chain_sms[dev];
     return cudaSuccess;
+}
+
+// Row segments of a blur: the fewest that give kBlurBlocksPerSM blocks an
+// SM (fewer segments, less halo recomputed), and no more than one per kBH
+// rows.
+int blur_segments(int B, int H, int W, int sms) {
+    const long long per = (long long)B * ((W + kBW - 1) / kBW);
+    const long long want = (kBlurBlocksPerSM * (long long)sms + per - 1) / per;
+    const long long most = (H + kBH - 1) / kBH;
+    return (int)(want < most ? want : most);
+}
+
+// Rows of a segment: H cut into blur_segments pieces, the last the shortest.
+int blur_segment_rows(int B, int H, int W, int sms) {
+    const int seg = blur_segments(B, H, W, sms);
+    return (H + seg - 1) / seg;
 }
 
 // The group of transitions that starts at l0: how many (at most `avail`) and
@@ -592,11 +724,26 @@ const char* hg_error_string(int err) {
 int hg_blur(const float* in, float* out, int B, int H, int W,
             const float* taps, int n, void* stream) {
     Taps t;
-    if (!make_taps(taps, n, &t) || B < 1 || B > 65535 || H < 1 || W < 1)
+    if (!make_taps(taps, n, &t) || B < 1 || B > 65535 || H < 1 || W < 1
+            || (long long)H * W > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
-    const long long hw = (long long)H * W;
-    launch_blur(in, out, hw, hw, B, H, W, t, (cudaStream_t)stream);
+    int sms = 0;
+    const cudaError_t e = sm_count(&sms);
+    if (e != cudaSuccess) return (int)e;
+    const int SH = blur_segment_rows(B, H, W, sms);
+    dim3 grid((W + kBW - 1) / kBW, (H + SH - 1) / SH, B);
+    blur_kernel<<<grid, kThreads, 4 * blur_smem_floats(n / 2),
+                  (cudaStream_t)stream>>>(in, out, H, W, SH, t);
     return (int)cudaGetLastError();
+}
+
+// The rows of a segment that hg_blur walks for a (B, H, W) stack on the
+// current device; -1 if it would refuse the shape. Launches nothing.
+int hg_blur_segment_rows(int B, int H, int W) {
+    int sms = 0;
+    if (B < 1 || B > 65535 || H < 1 || W < 1 || sm_count(&sms) != cudaSuccess)
+        return -1;
+    return blur_segment_rows(B, H, W, sms);
 }
 
 // base (B, H, W) -> out (B, L, H, W): out[:, 0] = base,
@@ -607,7 +754,7 @@ int hg_octave_chain(const float* base, float* out, int B, int L, int H, int W,
                     const float* taps, const int* ntaps, void* stream) {
     if (!chain_args_ok(B, L, H, W, ntaps)) return (int)cudaErrorInvalidValue;
     int sms = 0;
-    cudaError_t e = chain_device(&sms);
+    cudaError_t e = sm_count(&sms);
     if (e != cudaSuccess) return (int)e;
     cudaStream_t s = (cudaStream_t)stream;
     const long long hw = (long long)H * W;
@@ -642,7 +789,7 @@ int hg_octave_chain(const float* base, float* out, int B, int L, int H, int W,
 int hg_octave_chain_groups(int B, int L, int H, int W, const int* ntaps) {
     int sms = 0;
     if (!chain_args_ok(B, L, H, W, ntaps)
-            || chain_device(&sms) != cudaSuccess)
+            || sm_count(&sms) != cudaSuccess)
         return -1;
     int groups = 0;
     const cudaError_t e = for_each_group(

@@ -1,13 +1,16 @@
 """Stream compaction with static shapes (counterpart of
 hessgpu_tpu/ops/compaction.py).
 
-A dense boolean keypoint map becomes a fixed-capacity list: the first
-`capacity` valid cells in raster order, zeros past `count`. Membership is
-the JAX package's; its sort keys, per-row candidate cap and packed
-payloads are TPU cost decisions and are not carried over. Here an
-inclusive prefix sum numbers the valid cells and one scatter writes their
-flat indices into their slots. Shapes never depend on the data, so nothing
-synchronises with the host (torch.nonzero and boolean indexing would).
+A dense boolean keypoint map becomes a fixed-capacity list. Membership is
+the JAX package's: per key level, the leftmost `min(w, _row_cap(w))` valid
+cells of each row (the per-row candidate cap, which decides which keypoints
+are kept), then the first `capacity` of those in raster order, zeros past
+`count`. Its sort keys and packed payloads are TPU cost decisions and are
+not carried over. Here each kept cell gets its 1-based rank from prefix
+sums, a non-decreasing `pos` that steps by exactly 1 at each kept cell, and
+slot s takes the first cell whose `pos` reaches s + 1 (a binary search).
+Shapes never depend on the data, so nothing synchronises with the host
+(torch.nonzero and boolean indexing would).
 
 Capacity policy mirrors the reference: per-level cap
 min(0.5% of pixels, 4096) (PyramidCU.cpp:443-451, GlobalUtil.cpp:67-68);
@@ -21,6 +24,26 @@ from typing import NamedTuple, Sequence
 import torch
 
 from .keypoint import f32
+
+# Per-row candidate floor of the octave compaction (the cap scales with
+# width, _row_cap). The JAX package chose 32 as far above observed densities
+# at bench widths (the reference's own saddle-flood demo, checkerboard.png
+# at -t 0.000001, peaks at 10 detections in a row); the cap decides
+# membership, so the port keeps it.
+_ROW_CAP = 32
+
+
+def _row_cap(w: int) -> int:
+    """Per-row candidate cap for a w-wide level: max(32, w/32), <= 256.
+
+    The 3x3 NMS admits up to w/2 survivors per row, so a fixed cap can
+    truncate where the reference (per-level area cap only,
+    PyramidCU.cpp:443-451) would not. Scaling with width bounds the
+    divergence: truncation requires ONE row of ONE level to sustain more
+    than 1 NMS survivor per 32 px across its whole extent while the level
+    is still under its 0.5%-of-pixels cap - e.g. >64 survivors in a single
+    2048-px row."""
+    return max(_ROW_CAP, min(256, w // 32))
 
 
 class FeatureList(NamedTuple):
@@ -41,25 +64,29 @@ class FeatureList(NamedTuple):
         return self.valid.sum(dim=-1, dtype=torch.int32)
 
 
+def _first_slots(pos: torch.Tensor, capacity: int):
+    """Slots from ranks. pos: int32 (..., n), non-decreasing along the last
+    axis and stepping by exactly 1 at each cell to keep (so a kept cell's pos
+    is its 1-based rank). Slot s is the first cell whose pos reaches s + 1.
+
+    Returns (src (..., capacity) i64 indices into the last axis, the last
+    index past count; slot_valid (..., capacity) bool; count (...,) i32)."""
+    n = pos.shape[-1]
+    count = pos[..., -1].clamp(max=capacity)
+    want = torch.arange(1, capacity + 1, dtype=torch.int32, device=pos.device)
+    src = torch.searchsorted(
+        pos, want.expand(pos.shape[:-1] + (capacity,)).contiguous())
+    # a slot past count finds no cell (n); callers mask every such slot
+    return src.clamp_(max=n - 1), want <= count[..., None], count
+
+
 def compact_indices(valid: torch.Tensor, capacity: int):
     """First-`capacity` valid indices along the last axis, in index order.
 
-    valid: bool (..., n). Returns (src (..., capacity) i64 indices into the
-    last axis, 0 past count; slot_valid (..., capacity) bool; count (...,)
-    i32)."""
-    n = valid.shape[-1]
-    # pos = 1-based rank of each valid cell; slot 0 of the scatter buffer is
-    # never a valid cell's, slot capacity+1 collects every cell that is not
-    # kept, and both are cut off
-    pos = torch.cumsum(valid, dim=-1, dtype=torch.int32)
-    count = pos[..., -1].clamp(max=capacity)
-    dest = torch.where(valid, pos, capacity + 1).clamp_(max=capacity + 1)
-    idx = torch.arange(n, device=valid.device).expand(valid.shape)
-    src = torch.zeros(valid.shape[:-1] + (capacity + 2,), dtype=torch.int64,
-                      device=valid.device)
-    src.scatter_(-1, dest.to(torch.int64), idx)
-    slot_valid = torch.arange(capacity, device=valid.device) < count[..., None]
-    return src[..., 1:capacity + 1], slot_valid, count
+    valid: bool (..., n). Returns (src, slot_valid, count) as
+    _first_slots."""
+    return _first_slots(torch.cumsum(valid, dim=-1, dtype=torch.int32),
+                        capacity)
 
 
 def compact_sorted(valid: torch.Tensor, values: Sequence[torch.Tensor],
@@ -83,6 +110,12 @@ def compact_octave_keypoints(maps, sigmas, sigma_step: float,
     leaves, leading batch dims allowed) -> one blocked FeatureList with
     (..., NK, capacity) leaves (row k = key level k).
 
+    Membership is the JAX package's: the leftmost kpr = min(w, _row_cap(w))
+    valid cells of each row, then the first `capacity` of those in raster
+    order. A cell's rank within its row comes from a prefix sum along W,
+    the rows' capped counts from one along H, so no prefix sum runs over a
+    whole H*W map.
+
     Coordinates follow the reference convention: x = col + 0.5 + dx
     (ComputeOrientation_Kernel, ProgramCU.cu:1281-1298), scale =
     level_sigma * sigma_step**ds. sigmas: the NK level sigmas, as floats or
@@ -92,9 +125,15 @@ def compact_octave_keypoints(maps, sigmas, sigma_step: float,
     """
     h, w = maps.valid.shape[-2:]
     flat = lambda a: a.reshape(a.shape[:-2] + (h * w,))
-    src, sv, _ = compact_indices(flat(maps.valid), capacity)
+    # rank within the row, capped: a cell past the cap repeats the rank of
+    # the row's last kept cell, so pos steps only at kept cells
+    rank = torch.cumsum(maps.valid, dim=-1, dtype=torch.int32)
+    rank.clamp_(max=min(w, _row_cap(w)))
+    kept = rank[..., -1]                          # kept cells per row
+    before = torch.cumsum(kept, dim=-1, dtype=torch.int32) - kept
+    src, sv, _ = _first_slots(flat(rank.add_(before[..., None])), capacity)
     take = lambda a: torch.gather(flat(a), -1, src)
-    # slots past count gathered cell 0: everything is masked below
+    # slots past count gathered the last cell: everything is masked below
     dx, dy, ds = take(maps.dx), take(maps.dy), take(maps.ds)
     row = torch.div(src, w, rounding_mode="floor")
     x = ((src - row * w) + 0.5) + dx          # int + 0.5 is exact in f32

@@ -24,6 +24,7 @@ _ptr = ctypes.c_void_p
 _ARGTYPES = {
     "hg_blur": [_ptr, _ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 _ptr, ctypes.c_int, _ptr],
+    "hg_blur_segment_rows": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
     "hg_octave_chain": [_ptr, _ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, _ptr, _ptr, _ptr],
     "hg_octave_chain_groups": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -79,6 +80,20 @@ def blur(x: torch.Tensor, taps: Sequence[float]) -> torch.Tensor:
     build.check(err, "blur")
     build.count_launch("blur")
     return out
+
+
+def blur_segment_rows(x: torch.Tensor) -> int:
+    """The rows of each segment that blur(x, taps) walks down a column strip
+    on x's CUDA device (the kernel's one size choice; the last segment may
+    be shorter). Launches nothing."""
+    _check_planes(x, "blur_segment_rows")
+    if not x.is_cuda:
+        raise ValueError("blur_segment_rows: needs a CUDA tensor")
+    with build.on_device_of(x):
+        rows = _fn("hg_blur_segment_rows")(*x.shape)
+    if rows < 1:
+        raise RuntimeError("blur_segment_rows: shape refused")
+    return rows
 
 
 # ---------------------------------------------------------------------------

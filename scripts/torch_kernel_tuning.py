@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Registers, correctness and tile timings of the octave-chain and descriptor
-kernels (needs one CUDA device and nvcc).
+"""Registers, correctness and tile timings of the octave-chain, descriptor
+and blur kernels (needs one CUDA device and nvcc).
 
     python3 scripts/torch_kernel_tuning.py [--quick] [--ptxas-log FILE]
                                            [--tiles 80x128,64x64,...]
+                                           [--blur-blocks 2,3,4,5,6,8]
+                                           [--blur-stages 2,3,4]
 
 Builds the kernel library with -Xptxas -v and prints each kernel's registers,
 shared memory and spills; holds octave_chain against its plain version at
@@ -15,7 +17,13 @@ chain with and without its plan cache, and the chain per octave and detector
 with the tile its cost model picks beside each tile of --tiles. The kernel
 has no argument that fixes its tile: for each tile the script compiles a copy
 of csrc/conv.cu whose tile list is cut to that tile, and the chain is checked
-and timed through it wherever that tile runs the octave in one launch. Times
+and timed through it wherever that tile runs the octave in one launch. The
+blur is timed the same way at 16 x 480 x 640 (13 and 33 taps) and 16 x 240 x
+320: as built, with each pair of an input-buffer count of --blur-stages and
+a blocks-per-SM target of --blur-blocks (the segment height), and with one
+phase taken out of the kernel - the staging copies, the horizontal pass, the
+vertical pass, the stores - to show what each costs (those copies compute
+garbage; only their times are read). Times
 are medians of CUDA-event timings with the L2 cache evicted before each
 launch. Prints JSON lines.
 """
@@ -43,6 +51,12 @@ def main():
                     "80x96,80x64,64x64,128x32,32x32",
                     help="rows x columns of the tiles to time beside the "
                     "cost model's choice")
+    ap.add_argument("--blur-blocks", default="2,3,4,5,6,8",
+                    help="blocks-per-SM targets of the blur's segment rule "
+                    "to time beside the kernel's own")
+    ap.add_argument("--blur-stages", default="2,3,4",
+                    help="input buffers of the blur (copies run that many "
+                    "steps minus one ahead) to time beside the kernel's own")
     args = ap.parse_args()
 
     import io
@@ -212,11 +226,69 @@ def main():
         lambda: conv.octave_chain(inputs[shape], taps[det]))}
         for det in taps for shape in octaves}
 
-    # One tile at a time: a copy of conv.cu whose tile list holds that tile
-    # only, compiled into a library of its own that takes the place of the
-    # wrappers' library while the tile is timed.
+    # A copy of conv.cu with some of its text replaced, compiled into a
+    # library of its own that takes the place of the wrappers' library.
     source = (build.CSRC_DIR / "conv.cu").read_text()
     nvcc = build._find_nvcc()
+
+    def load_variant(name, text):
+        cu = build.BUILD_DIR / f"conv_{name}.cu"
+        cu.write_text(text)
+        so = cu.with_suffix(".so")
+        subprocess.run([nvcc, *build.NVCC_FLAGS, "-shared", str(cu), "-o",
+                        str(so)], check=True)
+        build._lib = ctypes.CDLL(str(so))
+        build._functions.clear()
+
+    # ---- blur: segment rule and phases ------------------------------------
+    t13 = gaussian_taps(SiftConfig().scale_params().initial_blur_sigma(0))
+    bx = {s: torch.from_numpy(rng.rand(*s).astype(np.float32)).to(dev)
+          for s in [(16, 480, 640), (16, 240, 320)]}
+    bcases = [("480x640_13", bx[(16, 480, 640)], t13),
+              ("480x640_33", bx[(16, 480, 640)], gaussian_taps(5.0)),
+              ("240x320_13", bx[(16, 240, 320)], t13)]
+    knobs = {k: re.search(r"constexpr int %s = (\d+);" % k, source)
+             for k in ("kBlurStages", "kBlurBlocksPerSM")}
+    if not all(knobs.values()):
+        sys.exit("conv.cu: no kBlurStages / kBlurBlocksPerSM to replace")
+    built = {k: int(m.group(1)) for k, m in knobs.items()}
+    variants = [("built", [])]
+    for st in sorted({built["kBlurStages"],
+                      *map(int, args.blur_stages.split(","))}):
+        for bps in sorted({built["kBlurBlocksPerSM"],
+                           *map(int, args.blur_blocks.split(","))}):
+            if (st, bps) != (built["kBlurStages"], built["kBlurBlocksPerSM"]):
+                variants.append((f"stages_{st}_blocks_per_sm_{bps}", [
+                    (knobs["kBlurStages"].group(0),
+                     f"constexpr int kBlurStages = {st};"),
+                    (knobs["kBlurBlocksPerSM"].group(0),
+                     f"constexpr int kBlurBlocksPerSM = {bps};")]))
+    variants += [   # a condition that never holds takes a phase out
+        ("no_staging", [("e < rows * iw;", "e < rows * iw && H < 0;")]),
+        ("no_horizontal_pass", [("if (lane < rows) {",
+                                 "if (lane < rows && H < 0) {")]),
+        ("no_vertical_pass", [("K; y < oend;", "K; y < oend && H < 0;")]),
+        ("no_stores", [("if (gx < W) {",
+                        "if (gx < W && acc[0] == -1.5f) {")])]
+    for name, pairs in variants:
+        text = source
+        for old, new in pairs:
+            if text.count(old) != 1:
+                sys.exit(f"conv.cu: blur variant {name}: {old!r} is not "
+                         "there once")
+            text = text.replace(old, new)
+        load_variant(f"blur_{name}", text)
+        row = {"segment_rows": conv.blur_segment_rows(bx[(16, 480, 640)])}
+        for label, x, tp in bcases:
+            if not name.startswith("no_") and not torch.equal(
+                    conv.blur(x, tp), conv.blur_plain(x, tp)):
+                sys.exit(f"blur {name}: differs from the plain blur at "
+                         f"{label}")
+            row[label] = time_ms(lambda: conv.blur(x, tp))
+        emit("blur_ms", variant=name, **row)
+
+    # One tile at a time: a copy of conv.cu whose tile list holds that tile
+    # only.
     for name in args.tiles.split(","):
         th, tw = map(int, name.split("x"))
         text = source
@@ -226,13 +298,7 @@ def main():
                               text)
             if n != 1:
                 sys.exit(f"conv.cu: no tile list {array} to replace")
-        cu = build.BUILD_DIR / f"conv_tile_{name}.cu"
-        cu.write_text(text)
-        so = cu.with_suffix(".so")
-        subprocess.run([nvcc, *build.NVCC_FLAGS, "-shared", str(cu), "-o",
-                        str(so)], check=True)
-        build._lib = ctypes.CDLL(str(so))
-        build._functions.clear()
+        load_variant(f"tile_{name}", text)
         for (det, shape), row in rows.items():
             # the whole chain must fit one launch's shared memory (else the
             # kernel runs it in groups, or refuses a single transition)

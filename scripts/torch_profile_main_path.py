@@ -12,7 +12,9 @@ and prints one JSON object: wall time per batch, device-busy time per batch
 name (the port's own kernels apart from PyTorch's), and per pipeline span
 (BUILD_PYRAMID, DETECT_KEYPOINTS, GENERATE_FEATURE_LIST, FEATURES_REDUCTION,
 COMPUTE_ORIENTATIONS, MULTI_ORIENTATIONS, COMPUTE_DESCRIPTORS) the host time
-inside it and the stretch of the device timeline it covers, gaps included.
+inside it and the stretch of the device timeline it covers, gaps included;
+and the launches per batch of every kernel name, so that two trees' launch
+counts can be told apart kernel by kernel.
 Also the wall time with the profiler off, so the instrumentation's cost
 shows.
 """
@@ -75,7 +77,7 @@ def main():
                   "GENERATE_FEATURE_LIST", "FEATURES_REDUCTION",
                   "COMPUTE_ORIENTATIONS", "MULTI_ORIENTATIONS",
                   "COMPUTE_DESCRIPTORS")
-    by_kernel, spans = {}, {}
+    by_kernel, spans, launches = {}, {}, {}
     busy_us = 0.0
     for ev in prof.key_averages():
         dev_us = float(getattr(ev, "self_device_time_total", 0.0))
@@ -93,6 +95,7 @@ def main():
         if str(ev.device_type).endswith("CUDA") and dev_us > 0:
             busy_us += dev_us
             by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us
+            launches[ev.key[:90]] = launches.get(ev.key[:90], 0) + ev.count
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])
     own_us = sum(v for k, v in top if any(o in k for o in own))
     wall_on = statistics.median(on)
@@ -111,6 +114,9 @@ def main():
         "spans": spans,
         "top_kernels_ms_per_batch": [
             [k[:90], v / 1e3 / args.iters] for k, v in top[:14]],
+        "launches_by_kernel_per_batch": {
+            k: n / args.iters for k, n in sorted(
+                launches.items(), key=lambda kv: (-kv[1], kv[0]))},
     }, indent=1))
 
 

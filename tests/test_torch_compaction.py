@@ -6,7 +6,9 @@ The JAX list carries its offsets through a 1/16384 fixed-point payload
 f32 maps. So x, y differ by at most half a quantum (3.1e-5; atol 4e-5),
 sigma by that times sigma*ln(sigma_step) (atol 4e-5 at these sigmas), and the
 response - made fp16-exact in the inputs here, as the detector leaves it -
-is equal.
+is equal. On maps wider than 64 (the row-cap cases) x and y are also one
+float32 unit in the last place of the map's size apart at most: both sides
+round col + 0.5 + dx to f32, with dx quantized on one side only.
 """
 
 import numpy as np
@@ -47,13 +49,13 @@ def _torch_list(m, cap):
     return {f: getattr(fl, f).numpy() for f in fl._fields}
 
 
-def _assert_lists_agree(got, want):
+def _assert_lists_agree(got, want, atol_xy=4e-5):
     np.testing.assert_array_equal(got["valid"], want["valid"])
     np.testing.assert_array_equal(got["ftype"], want["ftype"])
     np.testing.assert_array_equal(got["response"], want["response"])
     np.testing.assert_array_equal(got["theta"], want["theta"])
-    for f in ("x", "y", "sigma"):
-        np.testing.assert_allclose(got[f], want[f], atol=4e-5, rtol=0,
+    for f, atol in (("x", atol_xy), ("y", atol_xy), ("sigma", 4e-5)):
+        np.testing.assert_allclose(got[f], want[f], atol=atol, rtol=0,
                                    err_msg=f)
     # same cells: the integer part of x/y is the column/row
     np.testing.assert_array_equal(np.floor(got["x"] - 0.5 + 0.96),
@@ -72,6 +74,60 @@ def test_compact_octave_matches_jax(shape, density, cap):
     for f in got:
         assert got[f].shape == (shape[0], cap), f
     _assert_lists_agree(got, want)
+
+
+def _flooded(rng, shape, rows, step):
+    """_maps at 1% density with every `step`-th column valid in `rows` of
+    every key level (and batch item): rows denser than the per-row cap."""
+    m = _maps(rng, shape, 0.01)
+    for r in rows:
+        m["valid"][..., r, ::step] = True
+    m["ftype"] = np.where(m["valid"], m["ftype"] % 3, 3).astype(np.int32)
+    resp = (m["response"] + 0.25).astype(np.float16).astype(np.float32)
+    m["response"] = np.where(m["valid"], resp, 0).astype(np.float32)
+    return m
+
+
+@pytest.mark.parametrize("shape,rows,step,cap,kpr", [
+    ((2, 3, 48, 640), (5, 6, 30), 4, 1536, 32),    # 160 a row, cap 32
+    ((2, 3, 32, 2048), (0, 17), 4, 1536, 64),      # 512 a row, cap 64
+    ((2, 3, 20, 40), (3, 19), 1, 256, 32),         # 40 a row, cap 32 < w
+    ((2, 3, 20, 24), (0, 9, 10), 1, 256, 24),      # cap = w: no cap
+    ((2, 3, 48, 640), (2, 3, 4, 40), 2, 100, 32),  # the level cap binds too
+], ids=["w640", "w2048", "w40", "w24", "capacity-binds"])
+def test_row_cap_matches_jax(shape, rows, step, cap, kpr):
+    """The per-row candidate cap: the leftmost kpr valid cells of a row are
+    kept, then the first `cap` in raster order, as in the JAX package."""
+    m = _flooded(np.random.RandomState(16), shape, rows, step)
+    per_row = m["valid"].sum(-1)
+    assert tcomp._row_cap(shape[-1]) == kpr or kpr == shape[-1]
+    assert min(shape[-1], tcomp._row_cap(shape[-1])) == kpr
+    assert (per_row[..., rows] > kpr).all() or kpr == shape[-1]
+    got = _torch_list(m, cap)
+    for b in range(shape[0]):
+        want = _jax_list({k: v[b] for k, v in m.items()}, cap)
+        _assert_lists_agree({f: got[f][b] for f in got}, want,
+                            atol_xy=4e-5 + float(np.spacing(
+                                np.float32(max(shape[-2:])))))
+        # against numpy: the leftmost kpr of each row, then the first cap
+        cells = [(r, c) for r in range(shape[-2])
+                 for c in np.flatnonzero(m["valid"][b, 0, r])[:kpr]][:cap]
+        n = got["valid"][b, 0].sum()
+        assert n == len(cells)
+        r, c = np.array(cells, dtype=int).reshape(-1, 2).T
+        np.testing.assert_allclose(got["x"][b, 0, :n],
+                                   c + 0.5 + m["dx"][b, 0][r, c], atol=1e-6)
+        np.testing.assert_allclose(got["y"][b, 0, :n],
+                                   r + 0.5 + m["dy"][b, 0][r, c], atol=1e-6)
+    if cap == 100:
+        assert (got["valid"].sum(-1) == cap).all()
+        assert (per_row.clip(max=kpr).sum(-1) > cap).all()
+
+
+def test_row_cap_equals_the_jax_package():
+    """The port keeps its own copy of the cap; it equals the JAX value."""
+    for w in range(1, 4097):
+        assert tcomp._row_cap(w) == jcomp._row_cap(w), w
 
 
 def test_raster_order_overflow_and_zero_tail():

@@ -37,6 +37,7 @@ from hessgpu_tpu_torch.ops.descriptor import finalize_descriptors
 from hessgpu_tpu_torch.ops.orientation import peaks_from_votes
 from hessgpu_tpu_torch.params import gaussian_taps
 from hessgpu_tpu_torch.sfm.synthetic import texture_frame
+from test_torch_blur_tiling import _segment_rows
 
 pytestmark = pytest.mark.gpu
 
@@ -64,12 +65,28 @@ def _texture_batch(shape, device):
     return torch.from_numpy(frames).to(device)
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
-@pytest.mark.parametrize("sigma", [0.8, 1.5199, 5.0])
+# the main path's initial blur and the octave shapes below it, a batch of
+# 17, one row, one column, widths smaller than the 33-tap halo
+BLUR_SHAPES = SHAPES + [(16, 480, 640), (16, 240, 320), (16, 120, 160),
+                        (16, 60, 80), (16, 30, 40), (17, 101, 75),
+                        (2, 1, 77), (2, 50, 1), (3, 40, 7), (2, 5, 9)]
+
+
+@pytest.mark.parametrize("shape", BLUR_SHAPES, ids=str)
+@pytest.mark.parametrize("sigma", [0.8, 1.5199, 5.0])   # 5, 13 and 33 taps
 def test_blur_kernel_equals_plain(card, shape, sigma):
     x = _planes(shape, 1, card)
     taps = gaussian_taps(sigma)
     assert torch.equal(conv.blur(x, taps), conv.blur_plain(x, taps))
+
+
+@pytest.mark.parametrize("shape", BLUR_SHAPES, ids=str)
+def test_blur_segments_follow_the_modelled_rule(card, shape):
+    """The kernel's segment height is the one tests/test_torch_blur_tiling.py
+    models (and holds bit-equal to the plain blur)."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    x = _planes(shape, 1, card)
+    assert conv.blur_segment_rows(x) == _segment_rows(*shape, sms=sms)
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=str)

@@ -40,6 +40,7 @@ import torch
 
 from hessgpu_tpu import pyramid as jpyr
 from hessgpu_tpu.config import SiftConfig as JConfig
+from hessgpu_tpu.ops import compaction as jcomp
 from hessgpu_tpu.parallel.batch import detect_batch as jax_detect_batch
 from hessgpu_tpu_torch import (SiftConfig, detect_and_describe, detect_batch,
                                make_plan, run_pipeline)
@@ -228,6 +229,48 @@ def test_first_octave_positive_matches_jax(crop):
     got, _ = detect_and_describe(crop, tc, device="cpu")
     _assert_tables_agree(_torch_table(got), _np_table(want), min_count=5,
                          px=2e-3)
+
+
+def _dot_rows(seed=0, h=96, w=640, step=8, rows=(24, 48, 72)):
+    """Rows of dark Gaussian dots (sigma 2 px, `step` px apart, centres
+    jittered by 0.3 px, depths 0.5-0.6) on a faintly noisy grey: at octave 0
+    each row of dots gives far more keypoints in one row than the per-row
+    cap keeps."""
+    rng = np.random.RandomState(seed)
+    img = 0.6 + 0.02 * rng.rand(h, w)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for r in rows:
+        for c in range(step // 2 + 3, w - 3, step):
+            cy, cx = r + rng.uniform(-0.3, 0.3), c + rng.uniform(-0.3, 0.3)
+            img -= (0.5 + 0.1 * rng.rand()) \
+                * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 8.0)
+    return img.astype(np.float32)
+
+
+def test_row_cap_flood_matches_jax():
+    """A scene whose rows hold more keypoints than the per-row candidate cap
+    (32 at width 640): the JAX run is shown to hit the cap, and the port
+    keeps the same keypoints."""
+    img = _dot_rows()
+    jc, tc = _configs()
+    want, jaux = jpyr.detect_and_describe(img, jc)
+    got, taux = detect_and_describe(img, tc, device="cpu")
+    # the JAX run hit the cap: a (level, row) of its dense maps holds more
+    # than kpr cells, and its level counts are the capped row sums
+    jplan = jpyr.make_plan(*img.shape, jc)
+    kpr = min(img.shape[1], jcomp._row_cap(img.shape[1]))
+    octs = jpyr._build_pyramid(jnp.asarray(img), jplan, jc)
+    per_row = np.asarray(jpyr._detect_octave(octs[0], jplan, jc)[0].valid) \
+        .sum(-1)                                     # (key level, row)
+    assert per_row.max() > kpr
+    np.testing.assert_array_equal(
+        np.asarray(jaux["level_counts"])[:3], np.minimum(per_row, kpr).sum(-1))
+    assert int(jaux["pre_count"]) < per_row.sum()
+    # the port: the same counts and the same keypoints
+    np.testing.assert_array_equal(taux["level_counts"].numpy(),
+                                  np.asarray(jaux["level_counts"]))
+    assert int(taux["pre_count"]) == int(jaux["pre_count"])
+    _assert_tables_agree(_torch_table(got), _np_table(want), min_count=64)
 
 
 def test_frame_640x480_pinned_counts():
