@@ -13,9 +13,11 @@ there is no device, and on any failed phase. Phases, one JSON line each:
              the card, at every shape the main path gives it (640x480, B=16,
              five octaves; keypoint tables 16 x 2048 and 16 x 3072) plus an
              odd shape and one smaller than the chain's halo, Hessian and
-             DoG, and a 33-tap chain that runs in groups; timings by CUDA events
+             DoG, and a 33-tap chain that runs in groups; orientation also on
+             an all-invalid table and on large supports (sigma x
+             LARGE_SIGMA_FACTOR); timings by CUDA events
              (warm-up, then the median of REPS launches, the L2 cache
-             flushed before each)
+             flushed and the card kept busy ~1 ms before each)
   main_path  detect_batch on 16 seeded 640x480 textures, through the
              kernels (launch counts read), against the same batch through
              the plain versions on the card, frame 0 against its pinned
@@ -31,7 +33,9 @@ there is no device, and on any failed phase. Phases, one JSON line each:
              launches (every octave shape); blur adds its path per detector
              and its times at the smaller octave shapes and with 33 taps;
              detect_octave adds the bounds of every map written densely and
-             its first gate's warp shares
+             its first gate's warp shares; orientation and descriptor
+             their time on an all-invalid table, orientation on large
+             supports
   <name>, <power limit>
   {"ok": true, "device": {...}}
 """
@@ -67,10 +71,19 @@ DESC_TOL = 2e-6
 # 3, 8 entries x (multiply, multiply-add) 23.
 ORI_FLOPS_PER_PIXEL = 25
 DESC_FLOPS_PER_PIXEL = 75
+# The orientation kernel on the main path's keypoints with their sigma scaled
+# by this: boxes of 5 * 10^3 .. 1.3 * 10^4 pixels, the supports that
+# describe_keypoints meets with a user's large keypoints.
+LARGE_SIGMA_FACTOR = 6.0
 
 BATCH = 16
 HEIGHT, WIDTH = 480, 640
 REPS = 10
+# Cycles of torch.cuda._sleep (~1 ms) that keep the card busy before a timed
+# launch, after the L2 flush: a per-keypoint wrapper takes 0.1-0.2 ms of host
+# time to enqueue its launch, longer than the flush keeps the card busy, and
+# what it takes beyond that entered the kernel's time.
+BUSY_CYCLES = 2_000_000
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12       # float32 outside the tensor cores
 EXPECTED_LAUNCHES = {"blur": 1, "octave_chain": 5, "downsample2": 4,
@@ -79,7 +92,8 @@ EXPECTED_LAUNCHES_DEFAULT = dict(EXPECTED_LAUNCHES, orientation=1,
                                  descriptor=1)
 # per-kernel details that the kernels line carries where a kernel has them
 DETAIL = ("segment_rows", "path_ms_by_detector", "restart_blurs_by_detector",
-          "octave_shape_ms", "ms_33_taps",
+          "octave_shape_ms", "ms_33_taps", "empty_table_ms",
+          "large_support_ms", "large_support_pixels",
           "octave_ms", "valid_cells", "bound_ms_dense_contract",
           "path_bound_ms_dense_contract", "octave0_warp_share_nms",
           "octave0_warp_share_keypoint")
@@ -158,14 +172,16 @@ def main():
 
     def time_ms(fn, reps=REPS):
         """Median device time of fn() by CUDA events: 3 warm-up calls, then
-        reps timed ones. Before each, a 512 MB write evicts the 50 MB L2 and
-        keeps the card busy while the host enqueues the launch, so a short
-        kernel's time is its own and not the host's time to launch it."""
+        reps timed ones. Before each, a 512 MB write evicts the 50 MB L2 and,
+        with a sleep of BUSY_CYCLES, keeps the card busy while the host
+        enqueues the launch, so a short kernel's time is its own and not the
+        host's time to launch it."""
         for _ in range(3):
             fn()
         times = []
         for _ in range(reps):
             flush_buf.zero_()
+            torch.cuda._sleep(BUSY_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -459,6 +475,17 @@ def main():
     sc = scenes["hessian"]
     for mode in ori_modes:
         check_orientation(sc["table"], sc["maps"], sc["owin"], **mode)
+    # an all-invalid table, and every sigma scaled by LARGE_SIGMA_FACTOR
+    for det, cfg in cfg_def.items():
+        s = scenes[det]
+        tab = s["table"]
+        check_orientation(tab._replace(valid=torch.zeros_like(tab.valid)),
+                          s["maps"], s["owin"], max_peaks=cfg.max_orientations)
+        big = tab._replace(sigma=(tab.sigma * LARGE_SIGMA_FACTOR).contiguous())
+        big_win = tpyr.window_sizes(cfg, float(big.sigma[big.valid].max()))[0]
+        for mode in (dict(max_peaks=cfg.max_orientations), dict(single=True)):
+            _, want, _ = check_orientation(big, s["maps"], big_win, **mode)
+        s["large"] = (big, big_win, want.support)
     # an odd-shaped and a tiny batch (a lower threshold, so that the small
     # frames have keypoints), every mode, both personalities
     for shape in ((2, 101, 75), (3, 30, 40)):
@@ -651,9 +678,18 @@ def main():
     ori_args = (t.x, t.y, t.sigma, t.valid, t.level_id, maps, sc["owin"])
     ori_kw = dict(max_peaks=cfg_def["hessian"].max_orientations)
     n_ori, px_ori = t.x.numel(), sum_int(sc["ori_support"])
+    ori_none = ori_args[:3] + (torch.zeros_like(t.valid),) + ori_args[4:]
+    big, big_win, big_support = sc["large"]
+    ori_big = (big.x, big.y, big.sigma, big.valid, big.level_id, maps,
+               big_win)
     timing["orientation"] = dict(
         shape=list(t.x.shape),
         ms=time_ms(lambda: patch.orientation(*ori_args, **ori_kw)),
+        empty_table_ms=time_ms(lambda: patch.orientation(*ori_none,
+                                                         **ori_kw)),
+        large_support_ms=time_ms(lambda: patch.orientation(*ori_big,
+                                                           **ori_kw)),
+        large_support_pixels=sum_int(big_support),
         plain_ms=time_ms(lambda: patch.orientation_plain(*ori_args, **ori_kw),
                          reps=3),
         library_ms=None, valid_keypoints=sum_int(t.valid),
@@ -694,11 +730,12 @@ def main():
          deterministic=["orientation", "descriptor"],
          keypoints_checked={"hessian": keys_h, "dog": keys_d},
          chain_device_launches_33_taps=chain_groups,
-         empty_table_ms=timing["descriptor"]["empty_table_ms"],
+         empty_table_ms={k: timing[k]["empty_table_ms"]
+                         for k in ("orientation", "descriptor")},
          shapes_checked=checked,
          timing_ms={k: {kk: vv for kk, vv in v.items() if kk != "bound"}
                     for k, v in timing.items()},
-         reps=REPS, l2_flushed=True)
+         reps=REPS, l2_flushed=True, busy_cycles=BUSY_CYCLES)
 
     # ---- compaction: the per-row candidate cap on the card -------------------
     def check_row_cap():

@@ -19,12 +19,23 @@
 // instruction issue and the latency of a warp's serial walk over its
 // keypoint, far above either bound.
 //
-//  * orientation: one warp per slot. Lane l takes the pixels l, l+32, ... of
-//    the support's bounding box in raster order and adds their votes into
-//    its own column of a 36 x 32 shared histogram, so no two lanes ever add
-//    to one address; the 32 columns of a bin are then summed in lane order.
-//    Lane 0 runs the smoothing and the peak picking, which are branchy and
-//    tiny.
+//  * orientation: one warp per valid slot, the warps of a fixed grid (8 blocks
+//    of 4 warps per SM) striding over the slots in table-column order, so the
+//    valid slots - packed at the front of each item's row - go one to a warp
+//    across the card. A warp fetches the flags and levels of 32 of its slots
+//    at once, and each lane writes the zeros of its own slot if that is not
+//    valid (one store per output field). On a valid slot, lane l takes the
+//    pixels l, l + 32, ... of the support's bounding box in raster order, its
+//    (row, col) stepped without a division; the map values of 4 rounds are
+//    requested together (the walk waits on the memory's latency, not on the
+//    instruction rate), then each vote is added into the lane's own column of
+//    a 36 x 32 shared histogram (bank l whatever the bin; no two lanes add to
+//    one address). Lanes 0..17 then hold two adjacent bins each: the merge
+//    sums each bin's 32 columns as two chains of 16 in a fixed rotated order
+//    (the 18 lanes read 18 banks), the six smoothing rounds and the half-SIFT
+//    fold are two shuffles a round, and the peaks are picked by warp argmax
+//    over (vote, bin), ties to the lower bin. Thetas go out as one float4 and
+//    the four valid bytes as one word.
 //  * descriptor: a pixel of the support touches at most 2 x 2 cells x 2 bins
 //    of the 16 x 8 table, so the design spends instructions only where a
 //    pixel has entries. A block of 4 warps serves one slot. The support's
@@ -71,9 +82,11 @@ struct LevelTable {
 // orientation
 // ---------------------------------------------------------------------------
 
-constexpr int kOriWarps = 4;
+constexpr int kOriWarps = 4;          // warps of a block, each on its own slots
+constexpr int kOriBlocksPerSM = 8;
+constexpr int kOriAhead = 4;          // rounds whose map values are in flight
 constexpr int kBins = 36;
-constexpr int kCol = 33;   // 32 lane columns per bin + 1 against bank conflicts
+constexpr int kPairs = kBins / 2;     // lane l < 18 holds bins 2l and 2l + 1
 
 struct OriParams {
     int n, G;
@@ -85,7 +98,18 @@ struct OriParams {
     int half_sift, single, max_peaks;
 };
 
-__global__ void __launch_bounds__(kOriWarps * 32)
+// (v, b) becomes the warp's largest vote and its bin, ties to the lowest
+// bin; every lane ends with the same pair.
+__device__ __forceinline__ void warp_best(float& v, int& b) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+        const int ob = __shfl_xor_sync(0xffffffffu, b, off);
+        if (ov > v || (ov == v && ob < b)) { v = ov; b = ob; }
+    }
+}
+
+__global__ void __launch_bounds__(kOriWarps * 32, kOriBlocksPerSM)
 orientation_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
                    const float* __restrict__ sigmas,
                    const unsigned char* __restrict__ valids,
@@ -93,131 +117,234 @@ orientation_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
                    float* __restrict__ o_theta, unsigned char* __restrict__ o_valid,
                    float* __restrict__ o_votes,
                    const __grid_constant__ LevelTable T, OriParams P) {
-    __shared__ float hist[kOriWarps][kBins * kCol];
-    __shared__ float vbuf[kOriWarps][2][kBins];
+    // per warp: the 36 x 32 histogram, bin b of lane l's column at b * 32 + l
+    // (a lane's adds hit bank l whatever the bin), and the smoothed votes
+    __shared__ __align__(16) float s_hist[kOriWarps][kBins * 32];
+    __shared__ __align__(16) float s_votes[kOriWarps][kBins];
 
+    const unsigned full = 0xffffffffu;
+    const float neg_inf = __int_as_float(0xff800000);
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int slot = blockIdx.x * kOriWarps + warp;
-    if (slot >= P.n) return;
-    const int lid = level_ids[slot];
-    if (!valids[slot] || lid < 0 || lid >= T.NL) {
-        if (lane < 4) {
-            o_theta[(long long)slot * 4 + lane] = 0.0f;
-            o_valid[(long long)slot * 4 + lane] = 0;
-        }
-        if (o_votes)
-            for (int i = lane; i < kBins; i += 32)
-                o_votes[(long long)slot * kBins + i] = 0.0f;
-        return;
-    }
+    float* hist = s_hist[warp];
+    float* sv = s_votes[warp];
+    const int prv = (lane + kPairs - 1) % kPairs;   // pair neighbours
+    const int nxl = (lane + 1) % kPairs;
 
-    const float kx = xs[slot], ky = ys[slot], sg = sigmas[slot];
-    const int H = T.h[lid], W = T.w[lid];
-    const long long plane = (long long)(slot / P.G) * T.bstride[lid];
-    const float* __restrict__ g = T.grad[lid] + plane;
-    const float* __restrict__ r = T.rot[lid] + plane;
-
-    const float gsigma = sg * P.gaussian_factor;
-    const float win = fabsf(sg) * P.window;
-    const float dist_threshold = win * win + 0.5f;
-    const float factor = -0.5f / (gsigma * gsigma);
-
-    // integer pixels floor(k - win)..floor(k + win), clamped to [1, dim - 2]
-    const int ix0 = (int)fmaxf(1.0f, floorf(kx - win));
-    const int ix1 = (int)fminf((float)W - 2.0f, floorf(kx + win));
-    const int iy0 = (int)fmaxf(1.0f, floorf(ky - win));
-    const int iy1 = (int)fminf((float)H - 2.0f, floorf(ky + win));
-    const int nx = ix1 - ix0 + 1, ny = iy1 - iy0 + 1;
-    const int npx = (nx > 0 && ny > 0) ? nx * ny : 0;
-
-    float* hw = hist[warp];
-    for (int b = 0; b < kBins; ++b) hw[b * kCol + lane] = 0.0f;
-    for (int p = lane; p < npx; p += 32) {
-        const int row = p / nx;
-        const int iy = iy0 + row, ix = ix0 + (p - row * nx);
-        const float dx = ((float)ix + 0.5f) - kx;   // pixel centres
-        const float dy = ((float)iy + 0.5f) - ky;
-        const float sq = dx * dx + dy * dy;
-        if (sq < dist_threshold) {
-            const long long o = (long long)iy * W + ix;
-            int ob = (int)floorf(r[o] * P.bins_per_radian);
-            if (ob < 0) ob += kBins;
-            ob = min(max(ob, 0), kBins - 1);
-            hw[ob * kCol + lane] += g[o] * expf(sq * factor);
-        }
-    }
-    __syncwarp();
-    float* v = vbuf[warp][0];
-    float* t = vbuf[warp][1];
-    for (int b = lane; b < kBins; b += 32) {
-        float s = 0.0f;
-        for (int l = 0; l < 32; ++l) s += hw[b * kCol + l];
-        v[b] = s;
-    }
-    __syncwarp();
-    if (lane != 0) return;
-
-    // 6 rounds of circular [1/3 1/3 1/3] smoothing, ((pre + cur) + nxt) / 3
-    for (int round = 0; round < 6; ++round) {
-        for (int i = 0; i < kBins; ++i)
-            t[i] = ((v[(i + kBins - 1) % kBins] + v[i]) + v[(i + 1) % kBins])
-                   / 3.0f;
-        float* swap = v; v = t; t = swap;
-    }
-    if (P.half_sift)
-        for (int i = 0; i < kBins / 2; ++i) {
-            v[i] = v[i] + v[i + kBins / 2];
-            v[i + kBins / 2] = 0.0f;
-        }
-    if (o_votes)
-        for (int i = 0; i < kBins; ++i)
-            o_votes[(long long)slot * kBins + i] = v[i];
-
-    float th[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    unsigned char ov[4] = {0, 0, 0, 0};
-    float vmax = v[0];
-    int imax = 0;
-    for (int i = 1; i < kBins; ++i)
-        if (v[i] > vmax) { vmax = v[i]; imax = i; }   // first maximum
-    if (P.single) {
-        const float pre = v[(imax + kBins - 1) % kBins];
-        const float nxt = v[(imax + 1) % kBins];
-        const float off = 0.5f * (nxt - pre) / (vmax + vmax - nxt - pre);
-        th[0] = ((float)imax + 0.5f + off) / P.bins_per_radian;
-        ov[0] = 1;
-    } else {
-        // strict local maxima above threshold * max, by vote descending;
-        // among equal votes the lowest bin first
-        const float thr = P.peak_threshold * vmax;
-        unsigned long long taken = 0ull;
-        const int npk = min(4, P.max_peaks);
-        for (int s = 0; s < npk; ++s) {
-            float best = -1.0f;
-            int bi = -1;
-            for (int i = 0; i < kBins; ++i) {
-                const float vi = v[i];
-                if (!((taken >> i) & 1ull) && vi > thr
-                        && vi > v[(i + kBins - 1) % kBins]
-                        && vi > v[(i + 1) % kBins] && vi > best) {
-                    best = vi;
-                    bi = i;
+    // The warp's slots are j = gw, gw + TW, ... in table-column order (slot
+    // g of every batch item, then g + 1), so the valid slots, packed at the
+    // front of each item's row, go one to a warp over the whole grid.
+    const int B = P.n / P.G;
+    const int TW = gridDim.x * kOriWarps;
+    const int gw = warp * gridDim.x + blockIdx.x;
+    const int per_warp = gw < P.n ? (P.n - gw + TW - 1) / TW : 0;
+    auto slot_of = [&](int k) {
+        const int j = gw + k * TW, g = j / B;
+        return (j - g * B) * P.G + g;
+    };
+    for (int k0 = 0; k0 < per_warp; k0 += 32) {
+        // lane i fetches the flag and level of the warp's slot k0 + i, and
+        // writes the zeros of that slot if it is not valid
+        bool live = false;
+        int lid = -1;
+        if (k0 + lane < per_warp) {
+            const int slot = slot_of(k0 + lane);
+            lid = level_ids[slot];
+            live = valids[slot] && lid >= 0 && lid < T.NL;
+            if (!live) {
+                const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+                reinterpret_cast<float4*>(o_theta)[slot] = zero;
+                reinterpret_cast<unsigned*>(o_valid)[slot] = 0u;
+                if (o_votes) {
+                    float4* d = reinterpret_cast<float4*>(
+                        o_votes + (long long)slot * kBins);
+#pragma unroll
+                    for (int i = 0; i < kBins / 4; ++i) d[i] = zero;
                 }
             }
-            if (bi < 0) break;
-            taken |= 1ull << bi;
-            const float pre = v[(bi + kBins - 1) % kBins];
-            const float nxt = v[(bi + 1) % kBins];
-            const float di = 0.5f * (nxt - pre) / (best + best - nxt - pre);
-            const float rotb = (float)bi + di + 0.5f;   // in bins
-            float frac = rotb / 36.0f;
-            if (frac < 0.0f) frac = frac + 1.0f;
-            th[s] = floorf(frac * 255.0f) * P.theta_quantum;
-            ov[s] = 1;
         }
-    }
-    for (int s = 0; s < 4; ++s) {
-        o_theta[(long long)slot * 4 + s] = th[s];
-        o_valid[(long long)slot * 4 + s] = ov[s];
+        unsigned todo = __ballot_sync(full, live);
+        while (todo) {
+            const int i = __ffs(todo) - 1;
+            todo &= todo - 1;
+            const int slot = slot_of(k0 + i);
+            const int level = __shfl_sync(full, lid, i);
+
+            const float kx = xs[slot], ky = ys[slot], sg = sigmas[slot];
+            const int H = T.h[level], W = T.w[level];
+            const long long plane = (long long)(slot / P.G) * T.bstride[level];
+            const float* __restrict__ g = T.grad[level] + plane;
+            const float* __restrict__ r = T.rot[level] + plane;
+
+            const float gsigma = sg * P.gaussian_factor;
+            const float win = fabsf(sg) * P.window;
+            const float dist_threshold = win * win + 0.5f;
+            const float factor = -0.5f / (gsigma * gsigma);
+
+            // integer pixels floor(k - win)..floor(k + win), clamped to
+            // [1, dim - 2]
+            const int ix0 = (int)fmaxf(1.0f, floorf(kx - win));
+            const int ix1 = (int)fminf((float)W - 2.0f, floorf(kx + win));
+            const int iy0 = (int)fmaxf(1.0f, floorf(ky - win));
+            const int iy1 = (int)fminf((float)H - 2.0f, floorf(ky + win));
+            const int nx = ix1 - ix0 + 1, ny = iy1 - iy0 + 1;
+            const int npx = (nx > 0 && ny > 0) ? nx * ny : 0;
+
+            __syncwarp();   // the last slot's reads of hist and sv are done
+#pragma unroll
+            for (int e = 0; e < kBins / 4; ++e)   // 36 x 32 floats
+                reinterpret_cast<float4*>(hist)[e * 32 + lane] =
+                    make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            __syncwarp();
+
+            // Round t is the box's pixels 32 t .. 32 t + 31 in raster order,
+            // lane l the pixel 32 t + l: its (row, col) steps by 32 with one
+            // wrap, no division per pixel. The map values of kOriAhead rounds
+            // are requested together, then their votes added in round order.
+            if (npx > 0) {
+                const int drow = 32 / nx, dcol = 32 - drow * nx;
+                int row = lane / nx, col = lane - row * nx;
+                for (int p0 = 0; p0 < npx; p0 += 32 * kOriAhead) {
+                    bool in[kOriAhead];
+                    float sq[kOriAhead], gv[kOriAhead], rv[kOriAhead];
+#pragma unroll
+                    for (int u = 0; u < kOriAhead; ++u) {
+                        in[u] = false;
+                        sq[u] = gv[u] = rv[u] = 0.0f;
+                        if (row < ny) {
+                            const int iy = iy0 + row, ix = ix0 + col;
+                            // pixel centres
+                            const float dx = ((float)ix + 0.5f) - kx;
+                            const float dy = ((float)iy + 0.5f) - ky;
+                            sq[u] = dx * dx + dy * dy;
+                            in[u] = sq[u] < dist_threshold;
+                            if (in[u]) {
+                                const int o = iy * W + ix;
+                                gv[u] = g[o];
+                                rv[u] = r[o];
+                            }
+                        }
+                        row += drow;
+                        col += dcol;
+                        if (col >= nx) { col -= nx; ++row; }
+                    }
+#pragma unroll
+                    for (int u = 0; u < kOriAhead; ++u)
+                        if (in[u]) {
+                            int ob = (int)floorf(rv[u] * P.bins_per_radian);
+                            if (ob < 0) ob += kBins;
+                            ob = min(max(ob, 0), kBins - 1);
+                            hist[ob * 32 + lane] +=
+                                gv[u] * expf(sq[u] * factor);
+                        }
+                }
+            }
+            __syncwarp();
+
+            // Merge: lane l < 18 sums bins 2l and 2l + 1, each as two chains
+            // of 16 columns (72 half-columns in all), columns l, l + 1, ...
+            // and l + 16, l + 17, ... mod 32 in that order, so the 18 lanes
+            // read 18 banks at every step; then the two halves.
+            float lo = 0.0f, hi = 0.0f;
+            if (lane < kPairs) {
+                const float* h0 = hist + 2 * lane * 32;
+                const float* h1 = h0 + 32;
+                float lo_a = h0[lane], hi_a = h1[lane];
+                float lo_b = h0[(lane + 16) & 31], hi_b = h1[(lane + 16) & 31];
+#pragma unroll
+                for (int s = 1; s < 16; ++s) {
+                    const int ca = (lane + s) & 31, cb = (lane + 16 + s) & 31;
+                    lo_a = lo_a + h0[ca];
+                    hi_a = hi_a + h1[ca];
+                    lo_b = lo_b + h0[cb];
+                    hi_b = hi_b + h1[cb];
+                }
+                lo = lo_a + lo_b;
+                hi = hi_a + hi_b;
+            }
+
+            // 6 rounds of circular [1/3 1/3 1/3] smoothing across the pairs,
+            // ((pre + cur) + nxt) / 3 per bin, IEEE division
+#pragma unroll
+            for (int round = 0; round < 6; ++round) {
+                const float pre = __shfl_sync(full, hi, prv);   // bin 2l - 1
+                const float nxt = __shfl_sync(full, lo, nxl);   // bin 2l + 2
+                const float nlo = ((pre + lo) + hi) / 3.0f;
+                const float nhi = ((lo + hi) + nxt) / 3.0f;
+                lo = nlo;
+                hi = nhi;
+            }
+            if (P.half_sift) {   // bins 18..35 (lanes 9..17) onto 0..17
+                const float flo = __shfl_down_sync(full, lo, kPairs / 2);
+                const float fhi = __shfl_down_sync(full, hi, kPairs / 2);
+                if (lane < kPairs / 2) {
+                    lo = lo + flo;
+                    hi = hi + fhi;
+                } else {
+                    lo = 0.0f;
+                    hi = 0.0f;
+                }
+            }
+            if (lane < kPairs) {
+                reinterpret_cast<float2*>(sv)[lane] = make_float2(lo, hi);
+                if (o_votes)
+                    reinterpret_cast<float2*>(
+                        o_votes + (long long)slot * kBins)[lane] =
+                        make_float2(lo, hi);
+            }
+            __syncwarp();
+
+            // the first maximum
+            float vmax = lane < kPairs ? lo : neg_inf;
+            int imax = 2 * lane;
+            if (lane < kPairs && hi > lo) { vmax = hi; imax = 2 * lane + 1; }
+            warp_best(vmax, imax);
+            float4 th = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            unsigned ov = 0u;
+            if (P.single) {
+                const float pre = sv[(imax + kBins - 1) % kBins];
+                const float nxt = sv[(imax + 1) % kBins];
+                const float off =
+                    0.5f * (nxt - pre) / (vmax + vmax - nxt - pre);
+                th.x = ((float)imax + 0.5f + off) / P.bins_per_radian;
+                ov = 1u;
+            } else {
+                // strict local maxima above threshold * max, by vote
+                // descending; among equal votes the lowest bin first
+                const float thr = P.peak_threshold * vmax;
+                const float pre = __shfl_sync(full, hi, prv);
+                const float nxt = __shfl_sync(full, lo, nxl);
+                bool pk_lo = lane < kPairs && lo > thr && lo > pre && lo > hi;
+                bool pk_hi = lane < kPairs && hi > thr && hi > lo && hi > nxt;
+                const int npk = min(4, P.max_peaks);
+#pragma unroll
+                for (int s = 0; s < 4; ++s) {
+                    if (s >= npk) break;
+                    float best = pk_lo ? lo : neg_inf;
+                    int bi = 2 * lane;
+                    if (pk_hi && hi > best) { best = hi; bi = 2 * lane + 1; }
+                    warp_best(best, bi);
+                    if (best == neg_inf) break;
+                    if (bi == 2 * lane) pk_lo = false;
+                    if (bi == 2 * lane + 1) pk_hi = false;
+                    const float bp = sv[(bi + kBins - 1) % kBins];
+                    const float bn = sv[(bi + 1) % kBins];
+                    const float di = 0.5f * (bn - bp) / (best + best - bn - bp);
+                    const float rotb = (float)bi + di + 0.5f;   // in bins
+                    float frac = rotb / 36.0f;
+                    if (frac < 0.0f) frac = frac + 1.0f;
+                    const float q = floorf(frac * 255.0f) * P.theta_quantum;
+                    if (s == 0) th.x = q;
+                    else if (s == 1) th.y = q;
+                    else if (s == 2) th.z = q;
+                    else th.w = q;
+                    ov |= 1u << (8 * s);
+                }
+            }
+            if (lane == 0) {   // one store per output field
+                reinterpret_cast<float4*>(o_theta)[slot] = th;
+                reinterpret_cast<unsigned*>(o_valid)[slot] = ov;
+            }
+        }
     }
 }
 
@@ -456,8 +583,8 @@ int hg_orientation(const float* x, const float* y, const float* sigma,
                    float peak_threshold, float theta_quantum, int half_sift,
                    int single, int max_peaks, void* stream) {
     LevelTable T;
-    if (n < 1 || G < 1 || !fill_levels(T, grad_ptrs, rot_ptrs, bstride, lh,
-                                       lw, NL))
+    if (n < 1 || G < 1 || n % G != 0
+            || !fill_levels(T, grad_ptrs, rot_ptrs, bstride, lh, lw, NL))
         return (int)cudaErrorInvalidValue;
     OriParams P;
     P.n = n; P.G = G;
@@ -465,7 +592,15 @@ int hg_orientation(const float* x, const float* y, const float* sigma,
     P.bins_per_radian = bins_per_radian; P.peak_threshold = peak_threshold;
     P.theta_quantum = theta_quantum;
     P.half_sift = half_sift; P.single = single; P.max_peaks = max_peaks;
-    const int blocks = (n + kOriWarps - 1) / kOriWarps;
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    // a fixed grid that fills the card once; its warps stride over the slots
+    int blocks = sms * kOriBlocksPerSM;
+    const int need = (n + kOriWarps - 1) / kOriWarps;
+    if (blocks > need) blocks = need;
     orientation_kernel<<<blocks, kOriWarps * 32, 0, (cudaStream_t)stream>>>(
         x, y, sigma, valid, level_id, thetas, ovalid, votes, T, P);
     return (int)cudaGetLastError();

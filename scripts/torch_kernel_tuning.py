@@ -1,17 +1,32 @@
 #!/usr/bin/env python3
-"""Registers, correctness and tile timings of the octave-chain, descriptor
-and blur kernels (needs one CUDA device and nvcc).
+"""Registers, correctness and tile timings of the octave-chain,
+orientation, descriptor and blur kernels (needs one CUDA device and nvcc).
 
     python3 scripts/torch_kernel_tuning.py [--quick] [--ptxas-log FILE]
                                            [--tiles 80x128,64x64,...]
                                            [--blur-blocks 2,3,4,5,6,8]
                                            [--blur-stages 2,3,4]
+                                           [--ori-blocks 4,6,8,12,16]
+                                           [--ori-ahead 1,2,4,8]
+                                           [--old-patch OTHER/.../patch.cu]
 
 Builds the kernel library with -Xptxas -v and prints each kernel's registers,
 shared memory and spills; holds octave_chain against its plain version at
 the main path's shapes, small and odd ones, a 33-tap chain that runs in
-groups and an identity transition; holds descriptor against its plain
-version on the seeded 640x480 B=16 batch; then (unless --quick) times the
+groups and an identity transition; holds orientation (default and single
+mode, and on supports grown by sigma x 6) and descriptor against their plain
+versions on the seeded 640x480 B=16 batch; then (unless --quick) times the
+orientation kernel on the main path's table, on the same table with every
+slot not valid and on the large supports: as built, with each blocks-per-SM
+target of --ori-blocks, with each count of --ori-ahead rounds whose map
+values are requested together, and with its tail cut off after the walk, after the
+merge and after the smoothing (the walk's histograms kept live by a store,
+so only the time is read); with --old-patch, the orientation kernel of that
+copy of csrc/patch.cu (another tree's) as built and cut after its walk and
+after its merge, in the same way; each kernel as built is timed again on the
+main table five times as above, five times with the flush alone keeping the
+card busy and five times warm, beside the host's time to enqueue one call.
+It times the
 descriptor on the full and on an all-invalid table, the host's planning of a
 chain with and without its plan cache, and the chain per octave and detector
 with the tile its cost model picks beside each tile of --tiles. The kernel
@@ -24,8 +39,8 @@ a blocks-per-SM target of --blur-blocks (the segment height), and with one
 phase taken out of the kernel - the staging copies, the horizontal pass, the
 vertical pass, the stores - to show what each costs (those copies compute
 garbage; only their times are read). Times
-are medians of CUDA-event timings with the L2 cache evicted before each
-launch. Prints JSON lines.
+are medians of CUDA-event timings with the L2 cache evicted and the card
+kept busy ~1 ms before each launch. Prints JSON lines.
 """
 
 import argparse
@@ -57,6 +72,15 @@ def main():
     ap.add_argument("--blur-stages", default="2,3,4",
                     help="input buffers of the blur (copies run that many "
                     "steps minus one ahead) to time beside the kernel's own")
+    ap.add_argument("--ori-blocks", default="4,6,12,16",
+                    help="blocks-per-SM targets of the orientation kernel's "
+                    "grid to time beside the kernel's own")
+    ap.add_argument("--ori-ahead", default="1,2,8",
+                    help="rounds of the orientation kernel's walk whose map "
+                    "values are requested together, to time beside its own")
+    ap.add_argument("--old-patch", type=Path,
+                    help="another tree's csrc/patch.cu whose orientation "
+                    "kernel (same C interface) is timed beside this one")
     args = ap.parse_args()
 
     import io
@@ -71,6 +95,7 @@ def main():
     from hessgpu_tpu_torch import pyramid as tpyr
     from hessgpu_tpu_torch.ops import gaussian
     from hessgpu_tpu_torch.ops.cuda import build, conv, patch
+    from hessgpu_tpu_torch.ops.orientation import peaks_from_votes
     from hessgpu_tpu_torch.params import gaussian_taps
     from hessgpu_tpu_torch.sfm.synthetic import texture_frame
 
@@ -90,29 +115,42 @@ def main():
     if args.ptxas_log:
         args.ptxas_log.parent.mkdir(parents=True, exist_ok=True)
         args.ptxas_log.write_text(log.getvalue())
-    name = None
-    for line in log.getvalue().splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            name = m.group(1)
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            smem = re.search(r"(\d+) bytes smem", line)
-            emit("ptxas", kernel=name, registers=int(m.group(1)),
-                 static_smem=int(smem.group(1)) if smem else 0)
-        if "spill" in line and name and \
-                "0 bytes spill stores, 0 bytes spill loads" not in line:
-            emit("ptxas_spill", kernel=name, line=line.strip())
+    def report_ptxas(text, variant="built"):
+        name = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                smem = re.search(r"(\d+) bytes smem", line)
+                emit("ptxas", variant=variant, kernel=name,
+                     registers=int(m.group(1)),
+                     static_smem=int(smem.group(1)) if smem else 0)
+            if "spill" in line and name and \
+                    "0 bytes spill stores, 0 bytes spill loads" not in line:
+                emit("ptxas_spill", variant=variant, kernel=name,
+                     line=line.strip())
+
+    report_ptxas(log.getvalue())
     emit("build", seconds=build.build_seconds)
 
     flush_buf = torch.empty(512 * 1024 * 1024, dtype=torch.int8, device=dev)
 
-    def time_ms(fn, reps=10):
+    def time_ms(fn, reps=10, flush=True, sleep=2_000_000):
+        """Median of reps CUDA-event timings after 3 warm-up calls. Before
+        each, a 512 MB write evicts the L2 and keeps the card busy (about
+        0.16 ms), and `sleep` cycles of torch.cuda._sleep (~1 ms) keep it
+        busy longer, while the host enqueues the launch; with flush=False
+        the launch finds what the previous one left in the L2."""
         for _ in range(3):
             fn()
         times = []
         for _ in range(reps):
-            flush_buf.zero_()
+            if flush:
+                flush_buf.zero_()
+            if sleep:
+                torch.cuda._sleep(sleep)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -124,6 +162,7 @@ def main():
 
     # ---- chain: correctness -----------------------------------------------
     rng = np.random.RandomState(3)
+    bad = 0
     taps = {d: gaussian.chain_taps(SiftConfig(detector=d).scale_params())
             for d in ("hessian", "dog")}
     wide = [gaussian_taps(5.0)] * 4
@@ -138,7 +177,6 @@ def main():
               ((2, 200, 264), "dog", taps["dog"]),
               ((1, 101, 75), "identity",
                [taps["hessian"][0], (), taps["hessian"][1]])]
-    bad = 0
     for shape, label, tl in cases:
         x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev)
         got = conv.octave_chain(x, tl)
@@ -153,7 +191,38 @@ def main():
     # ---- descriptor: correctness ------------------------------------------
     frames = np.stack([texture_frame(seed) for seed in range(16)])
     imgs = torch.from_numpy(frames).to(dev)
-    scenes = {}
+    scenes, ori_scenes = {}, {}
+
+    def ori_check(det, t, maps, owin, **mode):
+        """The orientation kernel against its plain version on one table;
+        returns whether it passed (NaN equals NaN: a histogram of zeros has
+        a NaN single-mode theta on both routes)."""
+        a = (t.x, t.y, t.sigma, t.valid, t.level_id, maps, owin)
+        got = patch.orientation(*a, return_votes=True, **mode)
+        again = patch.orientation(*a, return_votes=True, **mode)
+        want = patch.orientation_plain(*a, **mode)
+        torch.cuda.synchronize()
+        scale = want.votes.amax(-1, keepdim=True).clamp_min(1e-30)
+        rel = float(((got.votes - want.votes).abs() / scale).max())
+        single = mode.get("single", False) or mode.get("max_peaks", 4) <= 1
+        th, ov = peaks_from_votes(got.votes, single=single,
+                                  max_peaks=mode.get("max_peaks", 4))
+        inv = ~t.valid[..., None]
+        same = lambda x, y: bool(((x == y) | (x.isnan() & y.isnan())).all())
+        same_bits = all(same(x, y) for x, y in zip(got, again)
+                        if x is not None)
+        zeros = not any(bool(x[~t.valid].any()) for x in got
+                        if x is not None)
+        own_peaks = torch.equal(ov & ~inv, got.valid) and same(
+            th.masked_fill(inv, 0.0), got.thetas)
+        ok = rel <= 2e-5 and same_bits and zeros and own_peaks
+        emit("orientation_check", detector=det, mode=mode,
+             slots=list(t.x.shape), keypoints=int(t.valid.sum()),
+             max_sigma=float(t.sigma[t.valid].max()),
+             voting_pixels=int(want.support.sum()), votes_max_rel_err=rel,
+             same_bits_twice=same_bits, zeros_on_invalid=zeros,
+             thetas_from_own_votes=own_peaks, ok=ok)
+        return ok
     for det in ("hessian", "dog"):
         cfg = SiftConfig(detector=det)
         plan = make_plan(480, 640, cfg)
@@ -164,6 +233,13 @@ def main():
             cfg, p.key_level_sigma(p.key_levels[-1]) * p.sigmak)
         ori = patch.orientation(t.x, t.y, t.sigma, t.valid, t.level_id, maps,
                                 owin, max_peaks=cfg.max_orientations)
+        big = t._replace(sigma=(t.sigma * 6.0).contiguous())
+        big_win = tpyr.window_sizes(cfg, float(big.sigma[big.valid].max()))[0]
+        for tab, win in ((t, owin), (big, big_win)):
+            for mode in (dict(max_peaks=cfg.max_orientations),
+                         dict(single=True)):
+                bad += not ori_check(det, tab, maps, win, **mode)
+        ori_scenes[det] = (t, big, maps, owin, big_win, cfg.max_orientations)
         g_exp = int(t.x.shape[-1] * cfg.expansion_factor + 7) // 8 * 8
         te = tpyr._expand_orientations(t, ori.thetas, ori.valid, g_exp)
         a = (te.x, te.y, te.sigma, te.theta, te.valid, te.level_id, maps, dwin)
@@ -226,19 +302,113 @@ def main():
         lambda: conv.octave_chain(inputs[shape], taps[det]))}
         for det in taps for shape in octaves}
 
-    # A copy of conv.cu with some of its text replaced, compiled into a
+    # A copy of a source with some of its text replaced, compiled into a
     # library of its own that takes the place of the wrappers' library.
-    source = (build.CSRC_DIR / "conv.cu").read_text()
     nvcc = build._find_nvcc()
 
     def load_variant(name, text):
-        cu = build.BUILD_DIR / f"conv_{name}.cu"
+        cu = build.BUILD_DIR / f"{name}.cu"
         cu.write_text(text)
         so = cu.with_suffix(".so")
-        subprocess.run([nvcc, *build.NVCC_FLAGS, "-shared", str(cu), "-o",
-                        str(so)], check=True)
+        r = subprocess.run([nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v",
+                            "-shared", str(cu), "-o", str(so)],
+                           capture_output=True, text=True, check=True)
+        if name.startswith("ori_"):
+            report_ptxas(r.stdout + r.stderr, name)
         build._lib = ctypes.CDLL(str(so))
         build._functions.clear()
+
+    def edited(text, name, pairs):
+        for old, new in pairs:
+            if text.count(old) != 1:
+                sys.exit(f"variant {name}: {old!r} is not there once")
+            text = text.replace(old, new)
+        return text
+
+    # ---- orientation: grid and phases, this tree's kernel and another's ----
+    t, big, omaps, owin, big_win, mp = ori_scenes["hessian"]
+    none = torch.zeros_like(t.valid)
+    oargs = (t.x, t.y, t.sigma, t.valid, t.level_id, omaps, owin)
+    ref = patch.orientation(*oargs, max_peaks=mp, return_votes=True)
+
+    def ori_times(variant, exact, spread=False):
+        if exact:   # any grid gives the built kernel's bits
+            got = patch.orientation(*oargs, max_peaks=mp, return_votes=True)
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)
+                       if a is not None):
+                sys.exit(f"orientation {variant}: differs from the built "
+                         "kernel")
+        emit("orientation_ms", variant=variant,
+             keypoints=int(t.valid.sum()),
+             ms=time_ms(lambda: patch.orientation(*oargs, max_peaks=mp)),
+             empty_table_ms=time_ms(lambda: patch.orientation(
+                 *oargs[:3], none, *oargs[4:], max_peaks=mp)),
+             large_support_ms=time_ms(lambda: patch.orientation(
+                 big.x, big.y, big.sigma, big.valid, big.level_id, omaps,
+                 big_win, max_peaks=mp)))
+        if spread:
+            # The main table again, five times each: as above; with the flush
+            # alone keeping the card busy (the timer of chip_smoke.py before
+            # it slept too), so that a host slower to enqueue the launch than
+            # the flush lasts enters the time; and warm. And the host's time
+            # to enqueue one call.
+            run = lambda: patch.orientation(*oargs, max_peaks=mp)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                run()
+            host_us = (time.perf_counter() - t0) / 50 * 1e6
+            torch.cuda.synchronize()
+            emit("orientation_spread_ms", variant=variant,
+                 host_us_per_call=host_us,
+                 cold=[time_ms(run) for _ in range(5)],
+                 cold_flush_only=[time_ms(run, sleep=0) for _ in range(5)],
+                 warm=[time_ms(run, flush=False) for _ in range(5)])
+
+    ori_times("built", True, spread=True)
+    psrc = (build.CSRC_DIR / "patch.cu").read_text()
+    for knob, label, values in (("kOriBlocksPerSM", "blocks_per_sm",
+                                 args.ori_blocks),
+                                ("kOriAhead", "ahead", args.ori_ahead)):
+        m = re.search(r"constexpr int %s = (\d+);" % knob, psrc)
+        if not m:
+            sys.exit(f"patch.cu: no {knob} to replace")
+        for v in map(int, values.split(",")):
+            if v != int(m.group(1)):
+                name = f"ori_{label}_{v}"
+                load_variant(name, edited(psrc, name, [(
+                    m.group(0), f"constexpr int {knob} = {v};")]))
+                ori_times(name, True)
+    # the tail taken off: each cut keeps what came before live by a store
+    keep = "if (lane < 4) o_theta[(long long)slot * 4 + lane] = {};\n" \
+           "            continue;\n"
+    cuts = [
+        ("ori_walk_only", "            // Merge: lane l < 18", "hist[lane]"),
+        ("ori_walk_merge", "            // 6 rounds of circular", "lo + hi"),
+        ("ori_walk_merge_smooth", "            // the first maximum",
+         "lo + hi")]
+    for name, at, value in cuts:
+        load_variant(name, edited(psrc, name, [
+            (at, "            " + keep.format(value) + at)]))
+        ori_times(name, False)
+    if args.old_patch:
+        old = args.old_patch.read_text()
+        keep_old = ("    if (lane < 4) "
+                    "o_theta[(long long)slot * 4 + lane] = {};\n"
+                    "    return;\n")
+        for name, pairs in [
+                ("ori_old_built", []),
+                ("ori_old_walk_only", [(
+                    "    __syncwarp();\n    float* v = vbuf[warp][0];",
+                    "    __syncwarp();\n" + keep_old.format("hw[lane]")
+                    + "    float* v = vbuf[warp][0];")]),
+                ("ori_old_walk_merge", [(
+                    "    __syncwarp();\n    if (lane != 0) return;",
+                    "    __syncwarp();\n" + keep_old.format("v[lane]"))])]:
+            load_variant(name, edited(old, name, pairs))
+            ori_times(name, False, spread=not pairs)
+
+    source = (build.CSRC_DIR / "conv.cu").read_text()
 
     # ---- blur: segment rule and phases ------------------------------------
     t13 = gaussian_taps(SiftConfig().scale_params().initial_blur_sigma(0))
@@ -271,13 +441,7 @@ def main():
         ("no_stores", [("if (gx < W) {",
                         "if (gx < W && acc[0] == -1.5f) {")])]
     for name, pairs in variants:
-        text = source
-        for old, new in pairs:
-            if text.count(old) != 1:
-                sys.exit(f"conv.cu: blur variant {name}: {old!r} is not "
-                         "there once")
-            text = text.replace(old, new)
-        load_variant(f"blur_{name}", text)
+        load_variant(f"conv_blur_{name}", edited(source, name, pairs))
         row = {"segment_rows": conv.blur_segment_rows(bx[(16, 480, 640)])}
         for label, x, tp in bcases:
             if not name.startswith("no_") and not torch.equal(
@@ -298,7 +462,7 @@ def main():
                               text)
             if n != 1:
                 sys.exit(f"conv.cu: no tile list {array} to replace")
-        load_variant(f"tile_{name}", text)
+        load_variant(f"conv_tile_{name}", text)
         for (det, shape), row in rows.items():
             # the whole chain must fit one launch's shared memory (else the
             # kernel runs it in groups, or refuses a single transition)

@@ -193,14 +193,11 @@ ORI_MODES = [dict(single=True), dict(max_peaks=1), dict(max_peaks=2),
              dict(single=True, half_sift=True)]
 
 
-@pytest.mark.parametrize("shape", [(2, 160, 200), (1, 101, 75), (3, 30, 40)],
-                         ids=str)
-@pytest.mark.parametrize("detector", ["hessian", "dog"])
-@pytest.mark.parametrize("mode", ORI_MODES, ids=lambda m: "-".join(
-    f"{k}{int(v)}" for k, v in m.items()))
-def test_orientation_kernel_against_plain(card, shape, detector, mode):
-    _, t, maps, owin, _ = _keypoint_scene(card, shape, detector,
-                                          threshold=0.002)
+def _check_orientation(t, maps, owin, mode):
+    """The orientation kernel against its plain version on one table: the
+    same bits twice, zeros where not valid, votes within VOTE_TOL, thetas
+    and valid equal to the plain peak picking on the kernel's own votes,
+    single-mode thetas within 1e-4 rad of the plain version's."""
     args = (t.x, t.y, t.sigma, t.valid, t.level_id, maps, owin)
     got = patch.orientation(*args, return_votes=True, **mode)
     again = patch.orientation(*args, return_votes=True, **mode)
@@ -224,6 +221,56 @@ def test_orientation_kernel_against_plain(card, shape, detector, mode):
         torch.testing.assert_close(got.thetas, want.thetas, rtol=0, atol=1e-4)
     else:
         assert int(differing.sum()) <= max(1, int(t.valid.sum()) // 100)
+    return want
+
+
+@pytest.mark.parametrize("shape", [(2, 160, 200), (1, 101, 75), (3, 30, 40)],
+                         ids=str)
+@pytest.mark.parametrize("detector", ["hessian", "dog"])
+@pytest.mark.parametrize("mode", ORI_MODES, ids=lambda m: "-".join(
+    f"{k}{int(v)}" for k, v in m.items()))
+def test_orientation_kernel_against_plain(card, shape, detector, mode):
+    _, t, maps, owin, _ = _keypoint_scene(card, shape, detector,
+                                          threshold=0.002)
+    _check_orientation(t, maps, owin, mode)
+
+
+@pytest.mark.parametrize("detector", ["hessian", "dog"])
+@pytest.mark.parametrize("mode", ORI_MODES, ids=lambda m: "-".join(
+    f"{k}{int(v)}" for k, v in m.items()))
+def test_orientation_kernel_large_support(card, detector, mode):
+    """Every sigma scaled by 6: boxes of thousands to 10^4 pixels, the
+    supports describe_keypoints meets with a user's large keypoints."""
+    cfg, t, maps, _, _ = _keypoint_scene(card, (2, 160, 200), detector,
+                                         threshold=0.002)
+    big = t._replace(sigma=(t.sigma * 6.0).contiguous())
+    owin = tpyr.window_sizes(cfg, float(big.sigma[big.valid].max()))[0]
+    want = _check_orientation(big, maps, owin, mode)
+    assert int(want.support[big.valid].max()) > 2000
+
+
+@pytest.mark.parametrize("table", ["all-invalid", "single-slot"])
+def test_orientation_kernel_sparse_tables(card, table):
+    """A table with no valid slot gives zeros everywhere; a single valid slot
+    (not at the front of its row) gives its result there and zeros
+    elsewhere."""
+    _, t, maps, owin, _ = _keypoint_scene(card, (2, 160, 200), "hessian",
+                                          threshold=0.002)
+    full = patch.orientation(t.x, t.y, t.sigma, t.valid, t.level_id, maps,
+                             owin, return_votes=True)
+    valid = torch.zeros_like(t.valid)
+    if table == "single-slot":
+        assert bool(t.valid[1, 2])
+        valid[1, 2] = True
+    sparse = t._replace(valid=valid)
+    _check_orientation(sparse, maps, owin, dict(max_peaks=2))
+    got = patch.orientation(t.x, t.y, t.sigma, valid, t.level_id, maps, owin,
+                            return_votes=True)
+    if table == "single-slot":
+        for a, b in zip(got, full):
+            assert a is None or torch.equal(a[1, 2], b[1, 2])
+    else:
+        assert not any(bool(a.any()) for a in got if a is not None)
 
 
 @pytest.mark.parametrize("shape", [(2, 160, 200), (1, 101, 75), (3, 30, 40)],
