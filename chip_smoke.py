@@ -13,7 +13,13 @@ there is no device, and on any failed phase. Phases, one JSON line each:
              the card, at every shape the main path gives it (640x480, B=16,
              five octaves; keypoint tables 16 x 2048 and 16 x 3072) plus an
              odd shape and one smaller than the chain's halo, Hessian and
-             DoG, and a 33-tap chain that runs in groups; orientation also on
+             DoG, and a 33-tap chain that runs in groups; the pyramid built
+             in place as the main path builds it (the blur into level 0 of
+             octave 0's stack, each chain's decimation epilogue into the
+             next stack's level 0) against the plain chain and the plain
+             decimation, cropped, and the standalone decimation beside it;
+             the epilogue at every level of the grouped chain and after an
+             identity transition; orientation also on
              an all-invalid table and on large supports (sigma x
              LARGE_SIGMA_FACTOR); timings by CUDA events
              (warm-up, then the median of REPS launches, the L2 cache
@@ -30,7 +36,12 @@ there is no device, and on any failed phase. Phases, one JSON line each:
   blur       the octave-0 blur's ms beside the card's name and power limit
   {"kernels": [...]}   one entry per kernel: launches on the main path,
              error, times, bound; path_ms and path_bound_ms sum a batch's
-             launches (every octave shape); blur adds its path per detector
+             launches (every octave shape); octave_chain adds its time per
+             octave with and without the decimation and from a base (the
+             standalone contract); downsample2, launched 0 times (fused into
+             octave_chain), carries the standalone kernel's times and, as
+             path_ms, the epilogue's cost (chain with minus without the
+             decimation, summed over the octaves); blur adds its path per detector
              and its times at the smaller octave shapes and with 33 taps;
              detect_octave adds the bounds of every map written densely and
              its first gate's warp shares; orientation and descriptor
@@ -86,12 +97,17 @@ REPS = 10
 BUSY_CYCLES = 2_000_000
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12       # float32 outside the tensor cores
-EXPECTED_LAUNCHES = {"blur": 1, "octave_chain": 5, "downsample2": 4,
+# downsample2 is the chain's decimation epilogue on the main path
+EXPECTED_LAUNCHES = {"blur": 1, "octave_chain": 5, "downsample2": 0,
                      "detect_octave": 5, "orientation": 0, "descriptor": 0}
 EXPECTED_LAUNCHES_DEFAULT = dict(EXPECTED_LAUNCHES, orientation=1,
                                  descriptor=1)
 # per-kernel details that the kernels line carries where a kernel has them
-DETAIL = ("segment_rows", "path_ms_by_detector", "restart_blurs_by_detector",
+DETAIL = ("fused_into", "octave_ms_without_decimation",
+          "octave_ms_from_base", "epilogue_ms_by_octave",
+          "epilogue_bound_ms_by_octave", "standalone_path_ms",
+          "standalone_path_bound_ms", "octave_bound_ms",
+          "segment_rows", "path_ms_by_detector", "restart_blurs_by_detector",
           "octave_shape_ms", "ms_33_taps", "empty_table_ms",
           "large_support_ms", "large_support_pixels",
           "octave_ms", "valid_cells", "bound_ms_dense_contract",
@@ -250,42 +266,82 @@ def main():
         return int(gm.valid.sum())
 
     def check_pyramid_kernels(imgs, cfg):
-        """Every kernel against its plain version along one pyramid, each
-        fed the same input (the kernel chain's own intermediates)."""
+        """Every kernel against its plain version along one pyramid, built
+        in place as the main path builds it, each fed the same input (the
+        kernel route's own intermediates): the blur into level 0 of octave
+        0's stack; each chain from its level 0, decimating level level_ds
+        into the next stack's level 0, against the plain chain and the plain
+        decimation cropped to the plan's shape; the chain from a base and
+        the standalone decimation beside them."""
         p = cfg.scale_params()
         plan = make_plan(imgs.shape[1], imgs.shape[2], cfg)
         taps0 = gaussian_taps(p.initial_blur_sigma(cfg.first_octave),
                               p.filter_width_factor)
-        base = conv.blur(imgs, taps0)
-        must_equal("blur", "output", base, conv.blur_plain(imgs, taps0))
-        checked["blur"] += 1
         taps_list = gaussian.chain_taps(p)
         lds = p.level_ds - p.level_min
+
+        def new_stack(o):
+            return torch.empty((imgs.shape[0], p.num_levels)
+                               + plan.octave_shapes[o], device=dev)
+
+        stack = new_stack(0)
+        conv.blur(imgs, taps0, out=stack[:, 0])
+        must_equal("blur", "into a stack", stack[:, 0],
+                   conv.blur_plain(imgs, taps0))
+        must_equal("blur", "output", conv.blur(imgs, taps0), stack[:, 0])
+        checked["blur"] += 1
         keys = 0
-        for o, (oh, ow) in enumerate(plan.octave_shapes):
+        for o in range(plan.num_octaves):
+            base = stack[:, 0].contiguous()
             if o > 0:   # the blur at every octave shape, 13 and 33 taps
                 for taps in (taps0, gaussian_taps(5.0)):
                     must_equal("blur", "octave shape", conv.blur(base, taps),
                                conv.blur_plain(base, taps))
                     checked["blur"] += 1
-            stack = conv.octave_chain(base, taps_list)
-            must_equal("octave_chain", "stack", stack,
-                       conv.octave_chain_plain(base, taps_list))
+            want = conv.octave_chain_plain(base, taps_list)
+            must_equal("octave_chain", "stack from a base",
+                       conv.octave_chain(base, taps_list), want)
+            nxt = new_stack(o + 1) if o + 1 < plan.num_octaves else None
+            if nxt is None:
+                conv.octave_chain_into(stack, taps_list)
+            else:
+                conv.octave_chain_into(stack, taps_list, decimate_level=lds,
+                                       next_base=nxt[:, 0])
+            must_equal("octave_chain", "stack in place", stack, want)
             groups = conv.octave_chain_groups(base, taps_list)
             if groups != 1:
                 fail(f"octave_chain at {tuple(base.shape)} ({cfg.detector}) "
                      f"takes {groups} device launches, not one")
             checked["octave_chain"] += 1
             keys += check_detect(stack, cfg)
-            if o + 1 < plan.num_octaves:
-                src = stack[:, lds]
-                down = conv.downsample2(src)
-                must_equal("downsample2", "output", down,
-                           conv.downsample2_plain(src))
-                checked["downsample2"] += 1
+            if nxt is not None:
                 nh, nw = plan.octave_shapes[o + 1]
-                base = down[..., :nh, :nw].contiguous()
+                src = stack[:, lds]
+                must_equal("downsample2", "the chain's decimation", nxt[:, 0],
+                           conv.downsample2_plain(src)[..., :nh, :nw])
+                must_equal("downsample2", "standalone", conv.downsample2(src),
+                           conv.downsample2_plain(src))
+                checked["downsample2"] += 2
+            stack = nxt
         return keys
+
+    def check_fused_decimation(x, taps_list, level):
+        """octave_chain_into on x's stack, in place, decimating `level` into
+        a plane of another stack, against the plain chain and decimation."""
+        B, H, W = x.shape
+        stack = torch.empty((B, 1 + len(taps_list), H, W), device=dev)
+        stack[:, 0] = x
+        nxt = torch.empty((B, 2, H // 2, W // 2), device=dev)
+        conv.octave_chain_into(stack, taps_list, decimate_level=level,
+                               next_base=nxt[:, 0])
+        want = conv.octave_chain_plain(x, taps_list)
+        must_equal("octave_chain", f"in place, level {level} decimated",
+                   stack, want)
+        must_equal("downsample2", f"the chain's decimation of level {level}",
+                   nxt[:, 0],
+                   conv.downsample2_plain(want[:, level])[..., :H // 2,
+                                                          :W // 2])
+        checked["downsample2"] += 1
 
     # ---- inputs -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -332,6 +388,12 @@ def main():
                    conv.octave_chain(x, with_identity),
                    conv.octave_chain_plain(x, with_identity))
         checked["octave_chain"] += 1
+        # the epilogue in every launch of the groups: a group's base, a
+        # level inside a later group, a launch's last level; and the level
+        # an identity transition produces
+        for level in range(len(wide_chain) + 1):
+            check_fused_decimation(x, wide_chain, level)
+        check_fused_decimation(x, with_identity, 2)
     if chain_groups[str(tuple(big.shape))] < 2:
         fail(f"the 33-tap chain did not run in groups: {chain_groups}")
     odd_stack_h = conv.octave_chain(odd, taps_h)
@@ -578,13 +640,18 @@ def main():
 
     # Bounds of the multi-launch kernels, per launch at each octave's shape;
     # a path bound is their sum over the launches of one batch.
-    def chain_bound(n):
-        # reads the base once, writes L levels; per level 2 passes of taps
-        return bound(4 * n * (1 + L), 4 * sum(chain_taps_n) * n)
+    def chain_bound(n, n_dec=0):
+        # in place: reads level 0 once, writes the L - 1 levels after it and
+        # the n_dec pixels of the decimated plane; per level 2 passes of taps
+        return bound(4 * n * L + 4 * n_dec, 4 * sum(chain_taps_n) * n)
 
     def down_bound(n):
-        # reads the kept quarter of the pixels, writes them; no arithmetic
+        # standalone: reads the kept quarter of the pixels, writes them
         return bound(8 * n, 0)
+
+    def epilogue_bound(n):
+        # fused: the kept pixels are on chip; it writes them
+        return bound(4 * n, 0)
 
     def detect_bound(n, n_valid):
         # reads L Gaussian planes; writes per key level valid (1 byte), grad
@@ -602,9 +669,24 @@ def main():
         return bound(n * (4 * L + 29 * NK), n * (13 * L + 170 * NK))
 
     n_oct = [BATCH * h * w for h, w in plan.octave_shapes]
-    chain_ms, down_ms, det_ms, det_valid = [], [], [], []
+    # the decimated plane of octave o: level 0 of octave o + 1
+    n_dec = [BATCH * h * w for h, w in plan.octave_shapes[1:]] + [0]
+    chain_ms, nodec_ms, from_base_ms, down_ms = [], [], [], []
+    det_ms, det_valid = [], []
     for o, stack in enumerate(octaves):
+        # the main path's call, in place into a copy of the octave's stack
+        # (level 0 stays, the levels after it are rewritten alike), the
+        # decimation into a plane of a stack of the next octave's shape
+        work = stack.clone()
+        fused = {}
+        if o + 1 < len(octaves):
+            nxt = torch.empty_like(octaves[o + 1])
+            fused = dict(decimate_level=lds, next_base=nxt[:, 0])
         chain_ms.append(time_ms(
+            lambda: conv.octave_chain_into(work, taps_list, **fused)))
+        nodec_ms.append(time_ms(
+            lambda: conv.octave_chain_into(work, taps_list)))
+        from_base_ms.append(time_ms(
             lambda: conv.octave_chain(bases[o], taps_list)))
         det_valid.append(int(detect.detect_octave(
             stack, norms, p.key_levels, **dkw)[0].valid.sum()))
@@ -613,24 +695,41 @@ def main():
         if o + 1 < len(octaves):
             down_ms.append(time_ms(
                 lambda: conv.downsample2(stack[:, lds])))
+        del work, fused
+
+    def chain_plain_0():
+        # what the plain route does for octave 0: the chain, then the
+        # decimation of level level_ds, cropped, as the next base
+        s0 = conv.octave_chain_plain(bases[0], taps_list)
+        h1, w1 = plan.octave_shapes[1]
+        return conv.downsample2_plain(s0[:, lds])[..., :h1, :w1].contiguous()
+
     timing["octave_chain"] = dict(
         shape=list(octaves[0].shape), ms=chain_ms[0], octave_ms=chain_ms,
-        path_ms=sum(chain_ms),
-        plain_ms=time_ms(
-            lambda: conv.octave_chain_plain(bases[0], taps_list)),
-        library_ms=None, bound=chain_bound(n0),
-        path_bound_ms=sum(chain_bound(n)[0] for n in n_oct))
+        path_ms=sum(chain_ms), octave_ms_without_decimation=nodec_ms,
+        octave_ms_from_base=from_base_ms,
+        plain_ms=time_ms(chain_plain_0),
+        library_ms=None, bound=chain_bound(n0, n_dec[0]),
+        octave_bound_ms=[chain_bound(n, d)[0] for n, d in zip(n_oct, n_dec)],
+        path_bound_ms=sum(chain_bound(n, d)[0] for n, d in zip(n_oct, n_dec)))
     src0 = octaves[0][:, lds]
     n_down = [BATCH * ((h + 1) // 2) * ((w + 1) // 2)
               for h, w in plan.octave_shapes[:-1]]
+    epilogue_ms = [a - b for a, b in zip(chain_ms[:-1], nodec_ms[:-1])]
     timing["downsample2"] = dict(
+        fused_into="octave_chain",
         shape=list(src0.shape), ms=down_ms[0], octave_ms=down_ms,
-        path_ms=sum(down_ms),
+        standalone_path_ms=sum(down_ms),
+        standalone_path_bound_ms=sum(down_bound(n)[0] for n in n_down),
+        epilogue_ms_by_octave=epilogue_ms,
+        epilogue_bound_ms_by_octave=[epilogue_bound(n)[0]
+                                     for n in n_dec[:-1]],
+        path_ms=sum(epilogue_ms),
+        path_bound_ms=sum(epilogue_bound(n)[0] for n in n_dec[:-1]),
         plain_ms=time_ms(lambda: conv.downsample2_plain(src0)),
         # the one PyTorch call that computes the same function
         library_ms=time_ms(lambda: src0[..., ::2, ::2].contiguous()),
-        bound=down_bound(n_down[0]),
-        path_bound_ms=sum(down_bound(n)[0] for n in n_down))
+        bound=down_bound(n_down[0]))
 
     def detect_gate_shares(stack):
         """The kernel's first gate on one octave: the share of warp passes
@@ -882,7 +981,7 @@ def main():
         torch.cuda.synchronize()
         launches = launch_counts()
         for name, n in launches.items():
-            if n == 0:
+            if n == 0 and EXPECTED_LAUNCHES_DEFAULT[name]:
                 fail(f"default main path ({cfg.detector}) never launched "
                      f"{name}")
         if launches != EXPECTED_LAUNCHES_DEFAULT:
@@ -972,7 +1071,8 @@ def main():
          height=HEIGHT, width=WIDTH, **report_h,
          batch_seconds=iters, frames_per_s_best=BATCH / min(iters),
          frames_per_s_median=BATCH / statistics.median(iters),
-         kernels_ms_per_batch=sum(t["path_ms"] for t in timing.values()),
+         kernels_ms_per_batch=sum(t["path_ms"] for name, t in timing.items()
+                                  if EXPECTED_LAUNCHES_DEFAULT[name]),
          max_memory_allocated=torch.cuda.max_memory_allocated())
     _, report_d = run_main_default(cfg_def["dog"], pinned=False)
     emit("main_path", config="default", detector="dog", batch=BATCH,

@@ -5,7 +5,8 @@
 // Replaces three TPU kernels of hessgpu_tpu/ops/pallas/conv.py:
 //   hg_blur          <- blur_pallas
 //   hg_octave_chain  <- octave_chain_pallas
-//   hg_downsample2   <- downsample2_pallas
+//   hg_downsample2   <- downsample2_pallas, called alone; on the main path
+//                       the chain's decimation epilogue instead
 //
 // Arithmetic, all three: each filter pass is acc = t[0]*x[0];
 // acc = acc + t[k]*x[k], left to right, compiled with -fmad=false, so results
@@ -14,8 +15,19 @@
 // blur and decimation are bound by bytes: a 13-tap separable filter does 52
 // operations per pixel against 8 bytes moved, decimation none at all. Each
 // reads every input pixel from device memory once (plus a halo) and writes
-// every output pixel once. Decimation reads the source plane through its
-// batch and row strides, so a plane of the level stack is decimated in place.
+// every output pixel once. The blur writes through an output batch stride,
+// so the initial blur lands in level 0 of octave 0's stack. The standalone
+// decimation reads the source plane through its batch and row strides.
+//
+// On the main path no decimation reads a level back: the chain that holds
+// level level_ds in shared memory writes its even rows and columns, cropped
+// to (H/2, W/2) like both pyramids crop, straight into level 0 of the next
+// octave's stack (the decimation epilogue, chain_decimate), and the next
+// chain starts from that level in place. Each octave's base is written once.
+// A decimation launch of its own would cost a launch floor per octave (~6
+// us, all of its time below 480 x 640), a read of the level back from
+// device memory at sector granularity (half the plane, to keep a quarter),
+// and a fresh base that the next chain copies into level 0 of its stack.
 //
 // The blur, one launch of (B, H, W):
 //  * A block owns a column strip of 64 output columns of one plane and walks
@@ -133,7 +145,10 @@ struct ChainParams {
     int pitchA, pitchB;         // odd row pitches of the two shared buffers
     int offB;                   // floats from buffer A to buffer B
     int write_base;             // 1: the base is also written out as level 0
-    long long in_bs, out_bs, hw;
+    int dec;                    // level of the group to decimate, -1 = none
+    int oh, ow;                 // the decimated plane: H / 2 x W / 2
+    float* dec_out;             // its batch item 0; rows of ow floats
+    long long in_bs, out_bs, hw, dec_bs;
 };
 
 // K = 8 neighbouring outputs of one filter pass from a window of nt + K - 1
@@ -208,11 +223,13 @@ __host__ __device__ constexpr int blur_smem_floats(int r) {
     return 36 + kBlurStages * kBH * blur_pitch(r) + kRing * kRingPitch;
 }
 
-// One separable blur of B contiguous (H, W) planes; block (strip, segment,
-// plane) writes columns [64 strip, +64) of rows [SH segment, +SH).
+// One separable blur of B contiguous (H, W) planes into B planes out_bs
+// floats apart; block (strip, segment, plane) writes columns [64 strip, +64)
+// of rows [SH segment, +SH).
 __global__ void __launch_bounds__(kThreads)
 blur_kernel(const float* __restrict__ in, float* __restrict__ out, int H,
-            int W, int SH, const __grid_constant__ Taps taps) {
+            int W, int SH, long long out_bs,
+            const __grid_constant__ Taps taps) {
     constexpr int K = kChainOut;
     extern __shared__ float blur_smem[];
     const int n = taps.n, r = n / 2;
@@ -224,9 +241,8 @@ blur_kernel(const float* __restrict__ in, float* __restrict__ out, int H,
 
     const int c0 = blockIdx.x * kBW;
     const int R0 = blockIdx.y * SH, R1 = min(H, R0 + SH);
-    const long long plane = (long long)blockIdx.z * H * W;
-    const float* src = in + plane;
-    float* dst = out + plane;
+    const float* src = in + (long long)blockIdx.z * H * W;
+    float* dst = out + (long long)blockIdx.z * out_bs;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     if (threadIdx.x < n) s_taps[threadIdx.x] = taps.t[threadIdx.x];
 
@@ -415,9 +431,28 @@ __device__ __forceinline__ void chain_vpass(
     }
 }
 
+// The decimation epilogue: next[y, x] = level[2y, 2x] for the kept pixels
+// of the block's tile [ty0, ty1) x [tx0, tx1), y < oh, x < ow, read from
+// buffer A, which holds the level over a region that contains the tile.
+// Tile origins are multiples of the (even) tile sizes, so the blocks' kept
+// pixels partition the decimated plane: each is written once. A warp
+// writes a run of consecutive columns of one row (coalesced); its reads of
+// A are two floats apart (a two-way bank conflict).
+__device__ __forceinline__ void chain_decimate(
+        const float* __restrict__ A, float* __restrict__ next, int ty0,
+        int ty1, int tx0, int tx1, int oy, int ox, int pA, int oh, int ow) {
+    constexpr int T = kChainThreads;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int y1 = min((ty1 + 1) >> 1, oh), x1 = min((tx1 + 1) >> 1, ow);
+    for (int y = (ty0 >> 1) + warp; y < y1; y += T / 32)
+        for (int x = (tx0 >> 1) + lane; x < x1; x += 32)
+            next[y * ow + x] = A[(2 * y - oy) * pA + (2 * x - ox)];
+}
+
 // Levels 1..nt of a group from its base, for one tile of one batch item.
 // in: the base plane of batch item 0; out: the plane of level 0 of the group
-// in the (B, L, H, W) stack (level l of the group is out + l*hw).
+// in the (B, L, H, W) stack (level l of the group is out + l*hw). If P.dec
+// >= 0, level P.dec of the group is also decimated into P.dec_out.
 __global__ void __launch_bounds__(kChainThreads)
 chain_kernel(const float* __restrict__ in, float* __restrict__ out,
              const __grid_constant__ ChainParams P) {
@@ -435,6 +470,7 @@ chain_kernel(const float* __restrict__ in, float* __restrict__ out,
     const int tx0 = col0, tx1 = min(col0 + P.TW, W);
     const float* src = in + (long long)blockIdx.z * P.in_bs;
     float* dst = out + (long long)blockIdx.z * P.out_bs;
+    float* next = P.dec_out + (long long)blockIdx.z * P.dec_bs;
 
     // region of level l: the tile grown by rem[l], cut to the image
     int y0 = max(0, row0 - P.rem[0]), y1 = min(H, row0 + P.TH + P.rem[0]);
@@ -459,6 +495,8 @@ chain_kernel(const float* __restrict__ in, float* __restrict__ out,
         for (int gy = ty0 + warp; gy < ty1; gy += T / 32)
             for (int gx = tx0 + lane; gx < tx1; gx += 32)
                 dst[gy * W + gx] = A[(gy - oy) * pA + (gx - ox)];
+    if (P.dec == 0)
+        chain_decimate(A, next, ty0, ty1, tx0, tx1, oy, ox, pA, P.oh, P.ow);
 
     for (int l = 0; l < P.nt; ++l) {
         dst += P.hw;
@@ -467,6 +505,9 @@ chain_kernel(const float* __restrict__ in, float* __restrict__ out,
             for (int gy = ty0 + warp; gy < ty1; gy += T / 32)
                 for (int gx = tx0 + lane; gx < tx1; gx += 32)
                     dst[gy * W + gx] = A[(gy - oy) * pA + (gx - ox)];
+            if (l + 1 == P.dec)
+                chain_decimate(A, next, ty0, ty1, tx0, tx1, oy, ox, pA, P.oh,
+                               P.ow);
             continue;
         }
         const int rem = P.rem[l + 1];
@@ -475,9 +516,14 @@ chain_kernel(const float* __restrict__ in, float* __restrict__ out,
         const float* ts = taps + l * kMaxTaps;
         chain_hpass(A, Bf, ts, n, y0, y1, x0, x1, X0, X1, oy, ox, pA, pB);
         __syncthreads();
+        // A keeps the new level for the next transition, and for the
+        // epilogue when it is the decimated one (a group's last level too)
         chain_vpass(Bf, A, dst, ts, n, y0, y1, Y0, Y1, X0, X1, oy, ox, pA, pB,
-                    ty0, ty1, tx0, tx1, W, l + 1 < P.nt);
+                    ty0, ty1, tx0, tx1, W, l + 1 < P.nt || l + 1 == P.dec);
         __syncthreads();
+        if (l + 1 == P.dec)   // A is read only: no barrier before the hpass
+            chain_decimate(A, next, ty0, ty1, tx0, tx1, oy, ox, pA, P.oh,
+                           P.ow);
         y0 = Y0; y1 = Y1; x0 = X0; x1 = X1;
     }
 }
@@ -720,12 +766,14 @@ const char* hg_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }
 
-// (B, H, W) -> (B, H, W), both contiguous. taps: n host floats, n odd <= 33.
+// (B, H, W) contiguous -> B planes of (H, W), out_bs floats apart, rows
+// contiguous (e.g. level 0 of a (B, L, H, W) stack: out_bs = L*H*W).
+// taps: n host floats, n odd <= 33.
 int hg_blur(const float* in, float* out, int B, int H, int W,
-            const float* taps, int n, void* stream) {
+            long long out_bs, const float* taps, int n, void* stream) {
     Taps t;
     if (!make_taps(taps, n, &t) || B < 1 || B > 65535 || H < 1 || W < 1
-            || (long long)H * W > 0x7fffffffLL)
+            || (long long)H * W > 0x7fffffffLL || out_bs < (long long)H * W)
         return (int)cudaErrorInvalidValue;
     int sms = 0;
     const cudaError_t e = sm_count(&sms);
@@ -733,7 +781,7 @@ int hg_blur(const float* in, float* out, int B, int H, int W,
     const int SH = blur_segment_rows(B, H, W, sms);
     dim3 grid((W + kBW - 1) / kBW, (H + SH - 1) / SH, B);
     blur_kernel<<<grid, kThreads, 4 * blur_smem_floats(n / 2),
-                  (cudaStream_t)stream>>>(in, out, H, W, SH, t);
+                  (cudaStream_t)stream>>>(in, out, H, W, SH, out_bs, t);
     return (int)cudaGetLastError();
 }
 
@@ -749,10 +797,21 @@ int hg_blur_segment_rows(int B, int H, int W) {
 // base (B, H, W) -> out (B, L, H, W): out[:, 0] = base,
 // out[:, l+1] = blur(out[:, l], taps of transition l). taps: (L-1) rows of 33
 // host floats; ntaps[l] = width of row l, 0 = identity. One launch per group
-// of consecutive levels.
+// of consecutive levels. base == NULL: out[:, 0] already holds the base, and
+// the chain starts from it in place (nothing writes level 0). dec_level in
+// [0, L): level dec_level is also decimated, next[b, y, x] =
+// out[b, dec_level, 2y, 2x] for y < H/2, x < W/2, into dec_out, whose batch
+// items are dec_bs floats apart and whose rows are W/2 floats long (e.g.
+// level 0 of the next octave's stack), by the launch that computes that
+// level (the first, for level 0). dec_level = -1: no decimation.
 int hg_octave_chain(const float* base, float* out, int B, int L, int H, int W,
-                    const float* taps, const int* ntaps, void* stream) {
-    if (!chain_args_ok(B, L, H, W, ntaps)) return (int)cudaErrorInvalidValue;
+                    const float* taps, const int* ntaps, int dec_level,
+                    float* dec_out, long long dec_bs, void* stream) {
+    if (!chain_args_ok(B, L, H, W, ntaps) || dec_level < -1
+            || dec_level >= L
+            || (dec_level >= 0 && (dec_out == nullptr
+                                   || dec_bs < (long long)(H / 2) * (W / 2))))
+        return (int)cudaErrorInvalidValue;
     int sms = 0;
     cudaError_t e = sm_count(&sms);
     if (e != cudaSuccess) return (int)e;
@@ -772,13 +831,21 @@ int hg_octave_chain(const float* base, float* out, int B, int L, int H, int W,
         }
         P.H = H; P.W = W; P.TH = plan.TH; P.TW = plan.TW;
         P.pitchA = plan.pitchA; P.pitchB = plan.pitchB; P.offB = plan.offB;
-        P.write_base = l0 == 0;
-        P.in_bs = l0 == 0 ? hw : stack;
+        const bool from_base = l0 == 0 && base != nullptr;
+        P.write_base = from_base;
+        P.in_bs = from_base ? hw : stack;
         P.out_bs = stack;
         P.hw = hw;
+        // the group that computes the level decimates it: a group's base
+        // (level l0 > 0) is the previous group's last level
+        P.dec = dec_level == 0 && l0 == 0 ? 0
+            : dec_level > l0 && dec_level <= l0 + nt ? dec_level - l0 : -1;
+        P.oh = H / 2; P.ow = W / 2;
+        P.dec_out = dec_out;
+        P.dec_bs = dec_bs;
         dim3 grid((W + plan.TW - 1) / plan.TW, (H + plan.TH - 1) / plan.TH, B);
         chain_kernel<<<grid, kChainThreads, plan.smem, s>>>(
-            l0 == 0 ? base : out + l0 * hw, out + l0 * hw, P);
+            from_base ? base : out + l0 * hw, out + l0 * hw, P);
         return cudaGetLastError();
     });
 }

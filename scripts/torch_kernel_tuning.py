@@ -13,7 +13,9 @@ orientation, descriptor and blur kernels (needs one CUDA device and nvcc).
 Builds the kernel library with -Xptxas -v and prints each kernel's registers,
 shared memory and spills; holds octave_chain against its plain version at
 the main path's shapes, small and odd ones, a 33-tap chain that runs in
-groups and an identity transition; holds orientation (default and single
+groups and an identity transition, and the chain's decimation epilogue
+(octave_chain_into in place, every level decimated in turn) against the
+plain decimation; holds orientation (default and single
 mode, and on supports grown by sigma x 6) and descriptor against their plain
 versions on the seeded 640x480 B=16 batch; then (unless --quick) times the
 orientation kernel on the main path's table, on the same table with every
@@ -28,8 +30,11 @@ main table five times as above, five times with the flush alone keeping the
 card busy and five times warm, beside the host's time to enqueue one call.
 It times the
 descriptor on the full and on an all-invalid table, the host's planning of a
-chain with and without its plan cache, and the chain per octave and detector
-with the tile its cost model picks beside each tile of --tiles. The kernel
+chain with and without its plan cache, the main path's chain per octave and
+detector with and without its decimation epilogue, from a base (writing
+level 0) and the standalone decimation beside it, and the chain per octave
+and detector with the tile its cost model picks beside each tile of
+--tiles. The kernel
 has no argument that fixes its tile: for each tile the script compiles a copy
 of csrc/conv.cu whose tile list is cut to that tile, and the chain is checked
 and timed through it wherever that tile runs the octave in one launch. The
@@ -184,9 +189,26 @@ def main():
         torch.cuda.synchronize()
         equal = bool(torch.equal(got, want))
         bad += not equal
+        # the epilogue: each level in turn decimated into a plane of a stack
+        B, H, W = shape
+        dec_equal = []
+        for level in range(1 + len(tl)):
+            stack = torch.empty_like(want)
+            stack[:, 0] = x
+            nxt = torch.full((B, 2, H // 2, W // 2), float("nan"),
+                             device=dev)
+            conv.octave_chain_into(stack, tl, decimate_level=level,
+                                   next_base=nxt[:, 0])
+            dec = conv.downsample2_plain(want[:, level])[..., :H // 2,
+                                                         :W // 2]
+            dec_equal.append(bool(torch.equal(stack, want))
+                             and bool(torch.equal(nxt[:, 0], dec))
+                             and bool(nxt[:, 1].isnan().all()))
+        bad += not all(dec_equal)
         emit("chain_check", shape=shape, taps=label, equal=equal,
              device_launches=conv.octave_chain_groups(x, tl),
-             max_abs_err=float((got - want).abs().max()))
+             max_abs_err=float((got - want).abs().max()),
+             decimation_equal_by_level=dec_equal)
 
     # ---- descriptor: correctness ------------------------------------------
     frames = np.stack([texture_frame(seed) for seed in range(16)])
@@ -301,6 +323,34 @@ def main():
     rows = {(det, shape): {"chosen": time_ms(
         lambda: conv.octave_chain(inputs[shape], taps[det]))}
         for det in taps for shape in octaves}
+
+    # The main path's chain with and without its decimation epilogue (level
+    # level_ds into a plane of a stack of the next octave's shape), in place,
+    # in turns (with, without, without, with) of 20 timed launches each; the
+    # chain from a base (the standalone contract, level 0 written) and the
+    # standalone decimation of the same level beside them.
+    for det, tl in taps.items():
+        q = SiftConfig(detector=det).scale_params()
+        lds = q.level_ds - q.level_min
+        for shape in octaves:
+            x = inputs[shape]
+            work = torch.empty((shape[0], 1 + len(tl)) + shape[1:],
+                               device=dev)
+            work[:, 0] = x
+            nxt = torch.empty((shape[0], 2, shape[1] // 2, shape[2] // 2),
+                              device=dev)
+            fused = lambda: conv.octave_chain_into(
+                work, tl, decimate_level=lds, next_base=nxt[:, 0])
+            alone = lambda: conv.octave_chain_into(work, tl)
+            turns = [time_ms(f, reps=20) for f in (fused, alone, alone,
+                                                   fused)]
+            emit("chain_epilogue_ms", detector=det, shape=shape,
+                 with_decimation=[turns[0], turns[3]],
+                 without_decimation=[turns[1], turns[2]],
+                 epilogue=(turns[0] + turns[3] - turns[1] - turns[2]) / 2,
+                 from_base=time_ms(lambda: conv.octave_chain(x, tl)),
+                 standalone_downsample2=time_ms(
+                     lambda: conv.downsample2(work[:, lds])))
 
     # A copy of a source with some of its text replaced, compiled into a
     # library of its own that takes the place of the wrappers' library.

@@ -134,6 +134,74 @@ def test_downsample2_kernel_equals_plain(card, shape):
     assert torch.equal(conv.downsample2(view), stack[:, 3, ::2, ::2])
 
 
+# the main path's octave shapes, an odd one and one smaller than the halo
+FUSED_SHAPES = [(16, 480, 640), (16, 240, 320), (16, 120, 160), (16, 60, 80),
+                (2, 101, 75), (3, 30, 40)]
+
+
+def _fused(x, taps_list, level):
+    """octave_chain_into in place from x, decimating `level` into level 0
+    of a stack of the next octave's shape; returns (stack, next stack)."""
+    B, H, W = x.shape
+    stack = torch.empty((B, 1 + len(taps_list), H, W), device=x.device)
+    stack[:, 0] = x
+    nxt = torch.full((B, 3, H // 2, W // 2), float("nan"), device=x.device)
+    conv.octave_chain_into(stack, taps_list, decimate_level=level,
+                           next_base=nxt[:, 0])
+    return stack, nxt
+
+
+def _decimated(level_plane):
+    _, H, W = level_plane.shape
+    return conv.downsample2_plain(level_plane)[..., :H // 2, :W // 2]
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES, ids=str)
+@pytest.mark.parametrize("detector", ["hessian", "dog"])
+def test_fused_decimation_equals_plain(card, shape, detector):
+    """The main path's chain: in place, level level_ds decimated by the
+    chain's epilogue into the next stack's level 0, which is the plain
+    decimation cropped to the floor-halved shape; nothing else written."""
+    p = SiftConfig(detector=detector).scale_params()
+    taps_list = gaussian.chain_taps(p)
+    lds = p.level_ds - p.level_min
+    x = _planes(shape, 9, card)
+    stack, nxt = _fused(x, taps_list, lds)
+    want = conv.octave_chain_plain(x, taps_list)
+    assert torch.equal(stack, want)
+    assert torch.equal(nxt[:, 0], _decimated(want[:, lds]))
+    assert bool(nxt[:, 1:].isnan().all())
+
+
+@pytest.mark.parametrize("shape", [(2, 200, 264), (1, 101, 75), (3, 30, 40)],
+                         ids=str)
+@pytest.mark.parametrize("level", range(5), ids=lambda l: f"level{l}")
+@pytest.mark.parametrize("variant", ["33-taps", "identity"])
+def test_fused_decimation_at_every_level(card, shape, level, variant):
+    """Four 33-tap transitions (groups of levels at 200 x 264: the level a
+    group's base, inside a later group, a launch's last), and a chain with
+    an identity transition (level 2 is the identity's copy)."""
+    taps_list = [gaussian_taps(5.0)] * 4
+    if variant == "identity":
+        taps_h = gaussian.chain_taps(SiftConfig().scale_params())
+        taps_list = [taps_h[0], (), taps_h[1], taps_h[2]]
+    x = _planes(shape, 10, card)
+    stack, nxt = _fused(x, taps_list, level)
+    want = conv.octave_chain_plain(x, taps_list)
+    assert torch.equal(stack, want)
+    assert torch.equal(nxt[:, 0], _decimated(want[:, level]))
+
+
+@pytest.mark.parametrize("shape", [(16, 480, 640), (2, 101, 75)], ids=str)
+def test_blur_into_a_plane_of_a_stack(card, shape):
+    x = _planes(shape, 11, card)
+    taps = gaussian_taps(1.5199)
+    stack = torch.full((shape[0], 5) + shape[1:], float("nan"), device=card)
+    conv.blur(x, taps, out=stack[:, 0])
+    assert torch.equal(stack[:, 0], conv.blur_plain(x, taps))
+    assert bool(stack[:, 1:].isnan().all())
+
+
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
 @pytest.mark.parametrize("detector", ["hessian", "dog"])
 @pytest.mark.parametrize("subpixel", [True, False], ids=["sub", "nosub"])
@@ -167,6 +235,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         conv.octave_chain(x[:, ::2], [gaussian_taps(1.0)])
     with pytest.raises(ValueError, match="contiguous"):
         conv.downsample2(x.transpose(1, 2))
+    stack = _planes((2, 5, 40, 48), 7, card)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv.octave_chain_into(stack[..., ::2], [gaussian_taps(1.0)] * 4)
+    with pytest.raises(ValueError, match="rows"):
+        conv.blur(x, gaussian_taps(1.0), out=stack[:, 0, :, :].transpose(1, 2)
+                  .contiguous().transpose(1, 2))
     with pytest.raises(ValueError, match="contiguous"):
         detect.detect_octave(
             _planes((1, 5, 40, 96), 6, card)[..., ::2], [1.0] * 5, [1, 2, 3],
@@ -337,16 +411,17 @@ def test_patch_wrappers_refuse_what_the_kernels_do_not_take(card):
 
 @pytest.mark.parametrize("detector", ["hessian", "dog"])
 def test_default_main_path_goes_through_the_kernels(card, detector):
-    """detect_batch with the default configuration launches all six kernels;
-    its table equals the plain versions' on the card up to the summation
-    order of the two per-keypoint stages."""
+    """detect_batch with the default configuration launches five kernels, and
+    the sixth, downsample2, as the chain's decimation epilogue (no launch of
+    its own); its table equals the plain versions' on the card up to the
+    summation order of the two per-keypoint stages."""
     imgs = _texture_batch((2, 160, 200), card)
     cfg = SiftConfig(detector=detector)
     n_oct = make_plan(160, 200, cfg).num_octaves
     reset_launch_counts()
     got = detect_batch(imgs, cfg)
     assert launch_counts() == {"blur": 1, "octave_chain": n_oct,
-                               "downsample2": n_oct - 1,
+                               "downsample2": 0,
                                "detect_octave": n_oct, "orientation": 1,
                                "descriptor": 1}
     want = detect_batch(imgs, cfg, plain=True)
@@ -361,15 +436,16 @@ def test_default_main_path_goes_through_the_kernels(card, detector):
 
 @pytest.mark.parametrize("detector", ["hessian", "dog"])
 def test_main_path_goes_through_the_kernels(card, detector):
-    """detect_batch on the card launches every kernel, and its table equals
-    the plain versions' on the card field for field."""
+    """detect_batch on the card launches every kernel of the path (the
+    decimation is the chain's epilogue), and its table equals the plain
+    versions' on the card field for field."""
     imgs = _texture_batch((2, 160, 200), card)
     cfg = SiftConfig(detector=detector, **SLICE)
     n_oct = make_plan(160, 200, cfg).num_octaves
     reset_launch_counts()
     got = detect_batch(imgs, cfg)
     assert launch_counts() == {"blur": 1, "octave_chain": n_oct,
-                               "downsample2": n_oct - 1,
+                               "downsample2": 0,
                                "detect_octave": n_oct, "orientation": 0,
                                "descriptor": 0}
     want = detect_batch(imgs, cfg, plain=True)
