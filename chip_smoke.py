@@ -33,6 +33,27 @@ there is no device, and on any failed phase. Phases, one JSON line each:
   compaction the row-capped compaction of a flooded (16, 3, 480, 640) octave
              on the card against the same on the CPU
   describe   describe_keypoints on the card fed frame 0's own keypoints
+  first_octave  DoG at -fo -1 (octave 0 upsampled to 960x1280): every kernel
+             against its plain version along that pyramid and on its tables,
+             detect_batch on the 16 upsampled frames (launches pinned) against
+             the plain versions, frame 0 through detect_and_describe against
+             the batch and the CPU; ms per frame; chain and detect at 960x1280
+  direct     conv_mode="direct", Hessian and DoG, -sd -ofix, B=16: launches
+             pinned (blur 21 / 26, downsample2 4, no chain), bit-equal to the
+             plain route, frame 0 equal to the CPU; pyramid ms and device
+             busy (torch.profiler) beside the chain mode's
+  facade     HessianSift on PGM files of frames 0-3 equal to
+             detect_and_describe, get_feature_vector, save_sift and
+             load_sift_text, run_with_keypoints, device_stage_report; run ms
+             split into load / pipeline / download
+  cli        python -m hessgpu_tpu_torch.cli.hess -i on two PGMs (the .sift
+             files byte-equal to the facade's) and -speed on one (Hz,
+             .speed.csv)
+  matcher    frame 0 against its 10 degree rotation, plain and guided: the
+             card's matches equal the CPU's; dots equal to int64 numpy at
+             frame 0's size and at 16384 x 16384; ms of _match_core and of
+             _guided_gate
+  evaluation evaluate_repeatability on frame 0 under the rotation, card = CPU
   blur       the octave-0 blur's ms beside the card's name and power limit
   {"kernels": [...]}   one entry per kernel: launches on the main path,
              error, times, bound; path_ms and path_bound_ms sum a batch's
@@ -46,15 +67,21 @@ there is no device, and on any failed phase. Phases, one JSON line each:
              detect_octave adds the bounds of every map written densely and
              its first gate's warp shares; orientation and descriptor
              their time on an all-invalid table, orientation on large
-             supports
+             supports; octave_chain and detect_octave their ms at
+             960x1280 (-fo -1); every kernel its launches on each path
+             (launches_by_path)
   <name>, <power limit>
   {"ok": true, "device": {...}}
 """
 
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # Keypoints of the seed-0 640x480 texture under SiftConfig(
@@ -112,7 +139,7 @@ DETAIL = ("fused_into", "octave_ms_without_decimation",
           "large_support_ms", "large_support_pixels",
           "octave_ms", "valid_cells", "bound_ms_dense_contract",
           "path_bound_ms_dense_contract", "octave0_warp_share_nms",
-          "octave0_warp_share_keypoint")
+          "octave0_warp_share_keypoint", "ms_960x1280", "launches_by_path")
 KERNEL_INFO = {
     "blur": ("hessgpu_tpu_torch/csrc/conv.cu",
              "hessgpu_tpu/ops/pallas/conv.py:381"),
@@ -127,6 +154,18 @@ KERNEL_INFO = {
     "descriptor": ("hessgpu_tpu_torch/csrc/patch.cu",
                    "hessgpu_tpu/ops/pallas/patch.py:584"),
 }
+
+
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+def write_pgm(path, img_u8):
+    """An 8-bit grayscale image as a binary PGM (P5)."""
+    import numpy as np
+    with open(path, "wb") as f:
+        f.write(f"P5\n{img_u8.shape[1]} {img_u8.shape[0]}\n255\n".encode())
+        f.write(np.ascontiguousarray(img_u8).tobytes())
+    return path
 
 
 def emit(phase, **fields):
@@ -1124,6 +1163,411 @@ def main():
          share_within_1e_5_with_theta=float((dd4 <= 1e-5).mean()),
          launches=describe_launches)
 
+    # =======================================================================
+    # The public entry points and the last two pipeline modes. Each phase
+    # sets the launch counts to 0 just before it drives its path and reads
+    # them just after.
+    # =======================================================================
+    from hessgpu_tpu_torch import HessianSift, SiftMatcher, detect_and_describe
+    from hessgpu_tpu_torch import matcher as tmatch
+    from hessgpu_tpu_torch.evaluation import (evaluate_repeatability,
+                                              rotation_homography, warp_image)
+    from hessgpu_tpu_torch.formats import load_sift_text
+    from hessgpu_tpu_torch.ops.resize import upsample
+    from hessgpu_tpu_torch.utils.timing import REFERENCE_BUCKETS, device_profile
+
+    def wall_ms(fn, reps=5):
+        """Host clock around fn() and a synchronize, after one warm-up:
+        every rep's ms."""
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def device_busy(fn):
+        """Device ms and pieces of device work per call of fn (the port's
+        own accounting, utils.timing.device_profile), over 5 calls."""
+        prof = device_profile(fn)
+        if prof["busy_ms"] <= 0:
+            fail("torch.profiler saw no device time")
+        return dict(busy_ms=prof["busy_ms"], kernel_launches=prof["launches"])
+
+    def frame_vs_cpu(card_table, cpu_table, what, descriptors=True):
+        """One frame on the card against the same frame on the CPU (plain
+        versions): the rules of the main path's frame-0 check."""
+        for f in ("valid", "level", "ftype", "response", "x", "y"):
+            if not same(getattr(card_table, f).cpu(), getattr(cpu_table, f)):
+                fail(f"{what}: {f} differs between the card and the CPU")
+        if not torch.allclose(card_table.sigma.cpu(), cpu_table.sigma,
+                              rtol=1e-6, atol=0):
+            fail(f"{what}: sigma differs between the card and the CPU")
+        n = int(cpu_table.valid.sum())
+        dth = circ(card_table.theta.cpu(), cpu_table.theta)
+        moved = dth > 1e-6
+        if float(dth.max()) > quantum + 1e-6 or int(moved.sum()) > n // 100:
+            fail(f"{what}: theta differs between the card and the CPU on "
+                 f"{int(moved.sum())} features, by up to {float(dth.max())}")
+        err = max_abs(card_table.desc.cpu()[~moved], cpu_table.desc[~moved]) \
+            if descriptors else 0.0
+        if err > 1e-5:
+            fail(f"{what}: descriptors {err} apart between the card and the "
+                 "CPU")
+        return dict(features=n, theta_moved=int(moved.sum()),
+                    desc_max_abs_err=err)
+
+    def kernels_equal_plain(table, plain, ok, what):
+        """The main path through the kernels against the plain versions on
+        the card, slot for slot on the frames `ok` (a frame outside it holds
+        a keypoint whose orientations the kernels phase found differing
+        within tolerance), descriptors within DESC_TOL."""
+        for f in ("valid", "level", "ftype", "x", "y", "sigma", "response",
+                  "theta"):
+            if not same(getattr(table, f)[ok], getattr(plain, f)[ok]):
+                fail(f"{what}: {f} differs between the kernels and the plain "
+                     "versions")
+            a = getattr(table, f)
+            if a.is_floating_point() and not bool(torch.isfinite(a).all()):
+                fail(f"{what}: {f} has non-finite values")
+        err = max_abs(table.desc[ok], plain.desc[ok])
+        if err > DESC_TOL:
+            fail(f"{what}: descriptors {err} apart; limit {DESC_TOL}")
+        return err
+
+    launches_by_path = {"default": launches_def}
+
+    # ---- first_octave: DoG at -fo -1, octave 0 upsampled to 960x1280 -------
+    cfg_fo = SiftConfig(detector="dog", first_octave=-1)
+    up = upsample(imgs).contiguous()                   # (16, 960, 1280)
+    plan_fo = make_plan(2 * HEIGHT, 2 * WIDTH, cfg_fo)
+    n_fo = plan_fo.num_octaves
+    # the kernels against their plain versions along this pyramid (blur,
+    # chain in place with its decimation, detect) and on its tables
+    keys_fo = check_pyramid_kernels(up, cfg_fo)
+    t_fo, maps_fo, owin_fo, dwin_fo = keypoint_scene(up, cfg_fo)
+    got_fo, _, differing_fo = check_orientation(
+        t_fo, maps_fo, owin_fo, max_peaks=cfg_fo.max_orientations)
+    g_fo = int(t_fo.x.shape[-1] * cfg_fo.expansion_factor + 7) // 8 * 8
+    check_descriptor(tpyr._expand_orientations(t_fo, got_fo.thetas,
+                                               got_fo.valid, g_fo),
+                     maps_fo, dwin_fo)
+    del t_fo, maps_fo, got_fo
+    expected_fo = dict(EXPECTED_LAUNCHES_DEFAULT, octave_chain=n_fo,
+                       detect_octave=n_fo)
+    reset_launch_counts()
+    table_fo = detect_batch(up, cfg_fo)
+    torch.cuda.synchronize()
+    launches_fo = launch_counts()
+    if launches_fo != expected_fo:
+        fail(f"-fo -1 launch counts {launches_fo} != {expected_fo}")
+    launches_by_path["first_octave_dog"] = launches_fo
+    plain_fo = detect_batch(up, cfg_fo, plain=True)
+    torch.cuda.synchronize()
+    if launch_counts() != launches_fo:
+        fail("the plain -fo -1 run launched a kernel")
+    ok_fo = ~differing_fo.any(-1)
+    fo_desc_err = kernels_equal_plain(table_fo, plain_fo, ok_fo, "-fo -1")
+    # frame 0 through detect_and_describe (the upsample on the card), against
+    # the batch's row 0 and against the CPU
+    one_fo, _ = detect_and_describe(frames[0], cfg_fo)
+    for f in one_fo._fields:
+        if not same(getattr(one_fo, f), getattr(table_fo, f)[0]):
+            fail(f"-fo -1 frame 0: {f} differs between detect_and_describe "
+                 "and the batch")
+    cpu_fo, _ = detect_and_describe(frames[0], cfg_fo, device="cpu")
+    fo_cpu = frame_vs_cpu(one_fo, cpu_fo, "-fo -1 frame 0")
+    # ms per frame, and the two dense kernels at 960x1280
+    fo_batch_ms = wall_ms(lambda: detect_batch(up, cfg_fo))
+    fo_frame_ms = wall_ms(lambda: detect_and_describe(frames[0], cfg_fo))
+    p_fo = cfg_fo.scale_params()
+    taps_fo = gaussian.chain_taps(p_fo)
+    lds_fo = p_fo.level_ds - p_fo.level_min
+    oct_fo = tpyr._build_pyramid(up, plan_fo, cfg_fo)
+    work = oct_fo[0].clone()
+    nxt = torch.empty_like(oct_fo[1])
+    chain_fo_ms = time_ms(lambda: conv.octave_chain_into(
+        work, taps_fo, decimate_level=lds_fo, next_base=nxt[:, 0]))
+    norms_fo = tpyr._detect_norms(p_fo, cfg_fo)
+    dkw_fo = dict(threshold=p_fo.threshold,
+                  edge_threshold=p_fo.edge_threshold, subpixel=True,
+                  darkness_adaption=False, detector="dog")
+    valid_fo = int(detect.detect_octave(oct_fo[0], norms_fo, p_fo.key_levels,
+                                        **dkw_fo)[0].valid.sum())
+    detect_fo_ms = time_ms(lambda: detect.detect_octave(
+        oct_fo[0], norms_fo, p_fo.key_levels, **dkw_fo))
+    n_big = BATCH * 4 * HEIGHT * WIDTH
+    L_fo, NK_fo = p_fo.num_levels, len(p_fo.key_levels)
+    chain_fo_bound = bound(4 * n_big * L_fo + n_big,
+                           4 * sum(len(t) for t in taps_fo) * n_big)
+    detect_fo_bound = bound(n_big * (4 * L_fo + 9 * NK_fo) + 20 * valid_fo,
+                            n_big * (13 * L_fo + 30 * NK_fo) + 170 * valid_fo)
+    del work, nxt, oct_fo, plain_fo
+    emit("first_octave", detector="dog", first_octave=-1, batch=BATCH,
+         input=[HEIGHT, WIDTH], octave0=[2 * HEIGHT, 2 * WIDTH],
+         octaves=n_fo, launches=launches_fo, keypoints_checked=keys_fo,
+         features=table_fo.count().tolist(),
+         frames_with_differing_orientations=int((~ok_fo).sum()),
+         equals_plain=True, desc_max_abs_err=fo_desc_err,
+         frame0_equals_batch=True, frame0_vs_cpu=fo_cpu,
+         batch_ms=fo_batch_ms, ms_per_frame_batched=min(fo_batch_ms) / BATCH,
+         frame0_ms=fo_frame_ms, ms_per_frame_single=min(fo_frame_ms),
+         chain_ms_960x1280=chain_fo_ms, chain_bound_ms_960x1280=chain_fo_bound,
+         detect_ms_960x1280=detect_fo_ms,
+         detect_bound_ms_960x1280=detect_fo_bound,
+         detect_valid_cells_960x1280=valid_fo)
+    timing["octave_chain"]["ms_960x1280"] = chain_fo_ms
+    timing["detect_octave"]["ms_960x1280"] = detect_fo_ms
+    del table_fo, one_fo, up
+
+    # ---- direct: every level blurred from the octave base ------------------
+    direct_report = {}
+    for det, blurs in (("hessian", 21), ("dog", 26)):
+        cfg_dir = SiftConfig(detector=det, conv_mode="direct", **slice_cfg)
+        cfg_chain = SiftConfig(detector=det, **slice_cfg)
+        expected = dict(EXPECTED_LAUNCHES, blur=blurs, downsample2=4,
+                        octave_chain=0)
+        reset_launch_counts()
+        table = detect_batch(imgs, cfg_dir)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        if launches != expected:
+            fail(f"direct ({det}) launch counts {launches} != {expected}")
+        launches_by_path[f"direct_{det}"] = launches
+        plain = detect_batch(imgs, cfg_dir, plain=True)
+        torch.cuda.synchronize()
+        if launch_counts() != launches:
+            fail("the plain direct run launched a kernel")
+        # detection only: the whole table is upstream of the orientation
+        # stage, so kernel and plain routes agree bit for bit
+        for f in table._fields:
+            if not same(getattr(table, f), getattr(plain, f)):
+                fail(f"direct ({det}): {f} differs between the kernels and "
+                     "the plain versions")
+        cpu = detect_batch(frames[:1], cfg_dir, device="cpu")
+        frame_vs_cpu(FeatureTable(*(a[:1] for a in table)), cpu,
+                     f"direct ({det}) frame 0", descriptors=False)
+        plan_d = make_plan(HEIGHT, WIDTH, cfg_dir)
+        direct_report[det] = dict(
+            launches=launches, keypoints=table.count().tolist(),
+            chain_mode_keypoints=detect_batch(imgs, cfg_chain).count()
+            .tolist(),
+            pyramid_ms=time_ms(lambda: tpyr._build_pyramid(imgs, plan_d,
+                                                           cfg_dir)),
+            chain_mode_pyramid_ms=time_ms(lambda: tpyr._build_pyramid(
+                imgs, plan_d, cfg_chain)),
+            device=device_busy(lambda: detect_batch(imgs, cfg_dir)),
+            chain_mode_device=device_busy(lambda: detect_batch(imgs,
+                                                               cfg_chain)))
+        del table, plain
+    emit("direct", config="-sd -ofix", batch=BATCH, height=HEIGHT,
+         width=WIDTH, equals_plain=True, frame0_equals_cpu=True,
+         **direct_report)
+
+    # ---- facade: HessianSift on PGM files ----------------------------------
+    workdir = tempfile.mkdtemp(prefix="hessgpu_smoke_")
+    try:
+        u8 = [(np.clip(frames[i], 0, 1) * 255 + 0.5).astype(np.uint8)
+              for i in range(4)]
+        pgms = [write_pgm(os.path.join(workdir, f"f{i}.pgm"), u8[i])
+                for i in range(4)]
+        sift = HessianSift()                          # device defaults to cuda
+        reset_launch_counts()
+        feats = [sift.run(p) for p in pgms]
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        want_launches = {k: 4 * v for k, v in EXPECTED_LAUNCHES_DEFAULT.items()}
+        if launches != want_launches:
+            fail(f"HessianSift.run launch counts {launches} != "
+                 f"{want_launches}")
+        launches_by_path["facade_4_frames"] = launches
+        # Each frame's run is detect_and_describe's on the card, field for
+        # field. That B=1 path is held, slot for slot, to its plain versions
+        # on the card and, under the main path's frame-0 rules, to the CPU.
+        facade_vs_cpu = []
+        for i, f in enumerate(feats):
+            card, _ = detect_and_describe(u8[i], SiftConfig())
+            want = to_numpy_trimmed(card)
+            for k in want:
+                if not np.array_equal(f[k], want[k]):
+                    fail(f"HessianSift.run frame {i}: {k} differs from "
+                         "detect_and_describe")
+            reset_launch_counts()
+            plain, _ = tpyr.run_pipeline(
+                *tpyr.prepare_input(u8[i], SiftConfig()), plain=True)
+            torch.cuda.synchronize()
+            if any(launch_counts().values()):
+                fail("the plain B=1 run launched a kernel")
+            kernels_equal_plain(FeatureTable(*(a[None] for a in card)),
+                                FeatureTable(*(a[None] for a in plain)),
+                                torch.ones(1, dtype=torch.bool, device=dev),
+                                f"HessianSift.run frame {i}")
+            cpu, _ = detect_and_describe(u8[i], SiftConfig(), device="cpu")
+            facade_vs_cpu.append(frame_vs_cpu(card, cpu,
+                                              f"HessianSift.run frame {i}"))
+            del card, plain, cpu
+        if len(feats[0]["x"]) != FRAME0_FEATURES:
+            fail(f"HessianSift.run frame 0: {len(feats[0]['x'])} features, "
+                 f"pinned {FRAME0_FEATURES}")
+        facade_sifts = []
+        for i in (0, 1):
+            f = sift.run(pgms[i])
+            kp, desc = sift.get_feature_vector()
+            if kp.shape != (len(f["x"]), 6) or desc is not f["desc"] \
+                    or not np.array_equal(kp[:, 0], f["x"]) \
+                    or not np.array_equal(kp[:, 5].view(np.uint32) & 0xFFFF,
+                                          f["level"]):
+                fail("get_feature_vector does not carry the features")
+            path = os.path.join(workdir, f"facade{i}.sift")
+            sift.save_sift(path)
+            facade_sifts.append(path)
+            back = load_sift_text(path)
+            if len(back["x"]) != len(f["x"]) \
+                    or np.abs(back["x"] - f["x"]).max() > 0.005 \
+                    or np.abs(back["desc"] - f["desc"]).max() > 0.5 / 512 + 1e-6 \
+                    or not np.array_equal(back["level"], f["level"]):
+                fail("save_sift / load_sift_text do not round-trip")
+        kp, _ = sift.get_feature_vector()       # frame 1's
+        reset_launch_counts()
+        reentry = sift.run_with_keypoints(pgms[1], kp)
+        reentry_launches = launch_counts()
+        if reentry_launches["descriptor"] != 1 \
+                or reentry_launches["orientation"] != 0 \
+                or len(reentry["x"]) != len(kp) \
+                or not np.array_equal(reentry["response"], kp[:, 4]) \
+                or not np.isfinite(reentry["desc"]).all() \
+                or np.abs(np.linalg.norm(reentry["desc"], axis=1) - 1).max() \
+                > 1e-5:
+            fail(f"run_with_keypoints: launches {reentry_launches}")
+        rep = sift.device_stage_report(pgms[0])
+        vals = list(rep.values())
+        if tuple(rep) != REFERENCE_BUCKETS or not all(
+                np.isfinite(v) and v >= 0 for v in vals) \
+                or rep["TOTAL"] < sum(vals[:-1]) - 1e-9 \
+                or rep["TOTAL"] <= 0 or rep["BUILD_PYRAMID"] <= 0 \
+                or rep["DETECT_KEYPOINTS"] <= 0:
+            fail(f"device_stage_report: {dict(rep)}")
+        stage_ms = {k: [] for k in ("load", "pipeline", "download")}
+        run_ms = []
+        sift.run(pgms[0])
+        for _ in range(10):
+            t0 = time.perf_counter()
+            sift.run(pgms[0])
+            run_ms.append((time.perf_counter() - t0) * 1e3)
+            for k in stage_ms:
+                stage_ms[k].append(sift.timer.last[k])
+        emit("facade", frames=4, features=[len(f["x"]) for f in feats],
+             launches=launches, equals_detect_and_describe=True,
+             equals_plain=True, vs_cpu=facade_vs_cpu,
+             save_sift_roundtrip=True, reentry_launches=reentry_launches,
+             device_stage_report_ms=dict(rep),
+             run_ms=run_ms, run_ms_median=statistics.median(run_ms),
+             stage_ms_median={k: statistics.median(v)
+                              for k, v in stage_ms.items()},
+             stage_ms=stage_ms, nvidia_smi=smi_line)
+
+        # ---- cli: python -m hessgpu_tpu_torch.cli.hess, on the card ---------
+        env = dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        cli = subprocess.run(
+            [sys.executable, "-m", "hessgpu_tpu_torch.cli.hess", "-i",
+             pgms[0], pgms[1]], cwd=workdir, env=env, capture_output=True,
+            text=True, timeout=300)
+        if cli.returncode != 0:
+            fail(f"hess -i: exit {cli.returncode}: {cli.stderr[-2000:]}")
+        for i, path in enumerate(facade_sifts):
+            with open(path, "rb") as a, \
+                    open(os.path.join(workdir, f"f{i}.sift"), "rb") as b:
+                if a.read() != b.read():
+                    fail(f"hess -i: f{i}.sift differs from the facade's")
+        speed = subprocess.run(
+            [sys.executable, "-m", "hessgpu_tpu_torch.cli.hess", "-i",
+             pgms[2], "-speed"], cwd=workdir, env=env, capture_output=True,
+            text=True, timeout=300)
+        hz = [float(v) for v in re.findall(r"([0-9.]+) Hz \(",
+                                           speed.stdout)]
+        csv_path = os.path.join(workdir, "f2.speed.csv")
+        if speed.returncode != 0 or len(hz) != 2 \
+                or not os.path.exists(csv_path):
+            fail(f"hess -speed: exit {speed.returncode}: {speed.stdout[-800:]}"
+                 f"{speed.stderr[-1500:]}")
+        with open(csv_path) as fh:
+            speed_csv = fh.read().splitlines()
+        if tuple(speed_csv[3].split(",")) != REFERENCE_BUCKETS:
+            fail(f"hess -speed: {csv_path} buckets {speed_csv[3]}")
+        emit("cli", images=2, sift_files_equal_facade=True, speed_hz=hz,
+             speed_csv=speed_csv, nvidia_smi=smi_line)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # ---- matcher --------------------------------------------------------------
+    H10 = rotation_homography(10, HEIGHT, WIDTH)
+    warped = warp_image(frames[0], H10)
+    fa = HessianSift().run(frames[0])
+    fb = HessianSift().run(warped)
+    m_card, m_cpu = SiftMatcher(), SiftMatcher(device="cpu")
+    pairs = [m.match(fa, fb) for m in (m_card, m_cpu)]
+    if not np.array_equal(pairs[0], pairs[1]) or len(pairs[0]) < 50:
+        fail(f"matcher: {len(pairs[0])} matches on the card, {len(pairs[1])} "
+             "on the CPU, or they differ")
+    guided = []
+    for m in (m_card, m_cpu):
+        m.set_feature_location(0, np.stack([fa["x"], fa["y"]], 1))
+        m.set_feature_location(1, np.stack([fb["x"], fb["y"]], 1))
+        guided.append(m.get_guided_sift_match(H=H10.astype(np.float32)))
+    if not np.array_equal(guided[0], guided[1]) or len(guided[0]) < 50:
+        fail("matcher: guided matches differ between the card and the CPU")
+    qa = torch.from_numpy(tmatch.quantize_descriptors(fa["desc"])).to(dev)
+    qb = torch.from_numpy(tmatch.quantize_descriptors(fb["desc"])).to(dev)
+    dots = tmatch.descriptor_dots(qa, qb).cpu().numpy()
+    want = qa.cpu().numpy().astype(np.int64) @ qb.cpu().numpy().astype(
+        np.int64).T
+    if not (dots == want).all():
+        fail("matcher: the dots at frame 0's size differ from int64 numpy")
+    g = np.random.RandomState(11)
+    N = 16384
+    big_a = torch.from_numpy(g.randint(0, 256, (N, 128), np.uint8)).to(dev)
+    big_b = torch.from_numpy(g.randint(0, 256, (N, 128), np.uint8)).to(dev)
+    big_a[0] = 255      # the largest dot: 128 * 255^2 = 8323200 < 2^24
+    big_b[0] = 255
+    dots = tmatch.descriptor_dots(big_a, big_b).cpu().numpy()
+    # every partial sum is an integer below 2^24, so the float64 product
+    # (BLAS, exact below 2^53) is the int64 one
+    want = (big_a.cpu().numpy().astype(np.float64)
+            @ big_b.cpu().numpy().astype(np.float64).T).astype(np.int64)
+    if not (dots == want).all() or int(want.max()) != 128 * 255 * 255:
+        fail("matcher: the 16384 x 16384 dots differ from int64 numpy")
+    del dots, want
+    va = torch.ones(N, dtype=torch.bool, device=dev)
+    core = lambda a, b, v1, v2: tmatch._match_core(a, b, v1, v2, 0.7, 0.8)
+    loc_a = torch.from_numpy(g.rand(N, 2).astype(np.float32) * 640).to(dev)
+    loc_b = torch.from_numpy(g.rand(N, 2).astype(np.float32) * 640).to(dev)
+    Ht = torch.from_numpy(H10.astype(np.float32)).to(dev)
+    Ft = torch.eye(3, device=dev)
+    vq = torch.ones(len(qa), dtype=torch.bool, device=dev)
+    vr = torch.ones(len(qb), dtype=torch.bool, device=dev)
+    emit("matcher", frame0_features=[len(fa["x"]), len(fb["x"])],
+         matches=len(pairs[0]), guided_matches=len(guided[0]),
+         card_equals_cpu=True, dots_equal_int64=[[len(qa), len(qb)], [N, N]],
+         match_core_ms_frame0=time_ms(lambda: core(qa, qb, vq, vr)),
+         match_core_ms_16384=time_ms(lambda: core(big_a, big_b, va, va),
+                                     reps=5),
+         guided_gate_ms_16384=time_ms(lambda: tmatch._guided_gate(
+             loc_a, loc_b, Ht, 32.0, Ft, 16.0), reps=5),
+         nvidia_smi=smi_line)
+    del big_a, big_b
+
+    # ---- evaluation: repeatability under the 10 degree rotation ------------
+    scores = [evaluate_repeatability(frames[0], angles=(10,), scales=(1.0,),
+                                     device=d) for d in ("cuda", "cpu")]
+    if scores[0] != scores[1] or not scores[0]["mean"] > 0.5:
+        fail(f"evaluate_repeatability: card {scores[0]}, CPU {scores[1]}")
+    emit("evaluation", angle=10, scale=1.0,
+         repeatability=scores[0]["mean"], card_equals_cpu=True)
+
     emit("blur", octave0_ms=timing["blur"]["ms"],
          path_ms_by_detector=timing["blur"]["path_ms_by_detector"],
          nvidia_smi=smi_line)
@@ -1132,6 +1576,8 @@ def main():
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         t = timing[name]
+        t["launches_by_path"] = {path: n[name]
+                                 for path, n in launches_by_path.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches_def[name],

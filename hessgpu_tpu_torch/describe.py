@@ -50,7 +50,7 @@ def _bin_by_scale(scale: np.ndarray, num_octaves: int, cfg: SiftConfig):
     s = p.num_scales
     shalf = 2.0 ** (0.5 / s)
     assigned = np.full(scale.shape[0], -1, np.int32)
-    octave_sigma = float(1 << cfg.first_octave)
+    octave_sigma = 2.0 ** cfg.first_octave
     for o in range(num_octaves):
         for li, kl in enumerate(p.key_levels):
             level_sigma = p.key_level_sigma(kl) * octave_sigma
@@ -64,7 +64,7 @@ def _bin_by_scale(scale: np.ndarray, num_octaves: int, cfg: SiftConfig):
             assigned[sel] = o * s + li
         octave_sigma *= 2.0
     osig = (2.0 ** (assigned // s).astype(np.float32)) \
-        * float(1 << cfg.first_octave)
+        * 2.0 ** cfg.first_octave
     return assigned, osig
 
 

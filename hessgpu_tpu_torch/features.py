@@ -41,3 +41,22 @@ def to_numpy_trimmed(table: FeatureTable) -> dict:
         out[name] = getattr(table, name).cpu().numpy()[valid]
     out["desc"] = table.desc.cpu().numpy()[valid]
     return out
+
+
+def keypoint_buffer(feats: dict) -> np.ndarray:
+    """Pack the reference SiftKeypoint host buffer: 6 floats per keypoint
+    (x, y, s, o, response, level<<16|type reinterpreted) - SiftGPU.h:108-122.
+
+    The last item stores level and type as two u16s in one float's bits.
+    """
+    n = feats["x"].shape[0]
+    buf = np.zeros((n, 6), dtype=np.float32)
+    buf[:, 0] = feats["x"]
+    buf[:, 1] = feats["y"]
+    buf[:, 2] = feats["sigma"]
+    buf[:, 3] = feats["theta"]
+    buf[:, 4] = feats["response"]
+    packed = (feats["level"].astype(np.uint32) & 0xFFFF) | (
+        (feats["ftype"].astype(np.uint32) & 0xFFFF) << 16)
+    buf[:, 5] = packed.view(np.float32)
+    return buf

@@ -76,3 +76,22 @@ def chain_taps(params: ScaleSpaceParams):
     """Per-transition tap vectors of one octave (empty = identity)."""
     return [gaussian_taps(s, params.filter_width_factor) if s > 0 else ()
             for s in params.incremental_sigmas()]
+
+
+def direct_taps(params: ScaleSpaceParams):
+    """Per-level tap vectors from the octave base (conv_mode="direct"; empty
+    = identity, level 0)."""
+    return [gaussian_taps(s, params.filter_width_factor) if s > 0 else ()
+            for s in params.direct_sigmas()]
+
+
+def octave_direct_taps(base: torch.Tensor,
+                       taps_list: Sequence[Sequence[float]]) -> torch.Tensor:
+    """Independent blurs of one base: level l = blur(base, taps_list[l])
+    (empty taps = identity). base (..., H, W) -> (..., len(taps_list), H, W).
+    With direct_taps(params) it is hessgpu_tpu/ops/gaussian.py
+    build_octave_direct, which pads the taps to one width and runs one
+    grouped XLA convolution: the same function, the terms summed in another
+    order."""
+    return torch.stack([blur_taps(base, tp) if len(tp) else base
+                        for tp in taps_list], dim=-3)

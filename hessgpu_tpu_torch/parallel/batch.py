@@ -23,7 +23,10 @@ def detect_batch(images, cfg: Optional[SiftConfig] = None,
     images.
 
     images: (B, H, W) float32 in [0, 1], a NumPy array or a tensor (moved to
-    `device` if it lies elsewhere). device="cuda" without a card raises.
+    `device` if it lies elsewhere), taken as octave 0's input as given: for
+    first_octave != 0 the caller resamples (ops.resize.upsample, or a
+    strided slice), as with the JAX package's detect_batch.
+    device="cuda" without a card raises.
     plain=True runs the kernels' plain PyTorch versions instead (a check,
     not a fallback).
     Returns a batched FeatureTable (leading dim B) on `device`: N slots per

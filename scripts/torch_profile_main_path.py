@@ -8,13 +8,13 @@ Runs hessgpu_tpu_torch.detect_batch on seeded 640x480 textures under
 torch.profiler, with the default SiftConfig() (orientations, descriptors) or
 with SiftConfig(compute_descriptors=False, fixed_orientation=True) (sd-ofix),
 and prints one JSON object: wall time per batch, device-busy time per batch
-(sum of all kernel durations), the device's idle share, device time by kernel
-name (the port's own kernels apart from PyTorch's), and per pipeline span
-(BUILD_PYRAMID, DETECT_KEYPOINTS, GENERATE_FEATURE_LIST, FEATURES_REDUCTION,
-COMPUTE_ORIENTATIONS, MULTI_ORIENTATIONS, COMPUTE_DESCRIPTORS) the host time
-inside it and the stretch of the device timeline it covers, gaps included;
-and the launches per batch of every kernel name, so that two trees' launch
-counts can be told apart kernel by kernel.
+(the summed duration of the device work), the device's idle share, device
+time by kernel name (the port's own kernels apart from PyTorch's), the device
+time inside each pipeline span (BUILD_PYRAMID ... COMPUTE_DESCRIPTORS, OTHER,
+TOTAL: hessgpu_tpu_torch.utils.timing.device_profile, the accounting that
+HessianSift.device_stage_report and chip_smoke.py use too) and the host
+time inside each span, and the launches per batch of every kernel name, so that two trees' launch counts can be told
+apart kernel by kernel.
 Also the wall time with the profiler off, so the instrumentation's cost
 shows.
 """
@@ -42,12 +42,12 @@ def main():
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     from hessgpu_tpu_torch import SiftConfig, detect_batch
     from hessgpu_tpu_torch.sfm.synthetic import texture_frame
+    from hessgpu_tpu_torch.utils.timing import device_profile
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -68,55 +68,30 @@ def main():
     for _ in range(3):
         one()
     off = [one() for _ in range(args.iters)]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        on = [one() for _ in range(args.iters)]
+    prof = device_profile(detect_batch, imgs, cfg, runs=args.iters)
 
     own = ("blur_kernel", "chain_kernel", "downsample2",
            "detect_kernel", "orientation_kernel", "descriptor_kernel")
-    span_names = ("BUILD_PYRAMID", "DETECT_KEYPOINTS",
-                  "GENERATE_FEATURE_LIST", "FEATURES_REDUCTION",
-                  "COMPUTE_ORIENTATIONS", "MULTI_ORIENTATIONS",
-                  "COMPUTE_DESCRIPTORS")
-    by_kernel, spans, launches = {}, {}, {}
-    busy_us = 0.0
-    for ev in prof.key_averages():
-        dev_us = float(getattr(ev, "self_device_time_total", 0.0))
-        if ev.key in span_names:
-            # the span is reported twice, once from each side
-            sp = spans.setdefault(ev.key, {"cpu_ms_per_batch": 0.0,
-                                           "device_span_ms_per_batch": 0.0})
-            sp["cpu_ms_per_batch"] = max(
-                sp["cpu_ms_per_batch"], ev.cpu_time_total / 1e3 / args.iters)
-            sp["device_span_ms_per_batch"] = max(
-                sp["device_span_ms_per_batch"],
-                float(getattr(ev, "device_time_total", 0.0))
-                / 1e3 / args.iters)
-            continue
-        if str(ev.device_type).endswith("CUDA") and dev_us > 0:
-            busy_us += dev_us
-            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us
-            launches[ev.key[:90]] = launches.get(ev.key[:90], 0) + ev.count
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])
-    own_us = sum(v for k, v in top if any(o in k for o in own))
-    wall_on = statistics.median(on)
+    own_ms = sum(ms for k, (ms, _) in prof["by_kernel"].items()
+                 if any(o in k for o in own))
+    wall_on = statistics.median(prof["wall_ms"])
     print(json.dumps({
         "card": smi, "config": args.config, "detector": args.detector,
         "batch": args.batch, "iters": args.iters,
         "wall_ms_per_batch_profiler_off": statistics.median(off),
         "wall_ms_per_batch_profiler_on": wall_on,
-        "device_busy_ms_per_batch": busy_us / 1e3 / args.iters,
-        "device_idle_share": 1.0 - busy_us / 1e3 / args.iters / wall_on,
-        "own_kernels_ms_per_batch": own_us / 1e3 / args.iters,
-        "pytorch_kernels_ms_per_batch": (busy_us - own_us) / 1e3 / args.iters,
-        "kernel_launches_per_batch":
-            sum(ev.count for ev in prof.key_averages()
-                if str(ev.device_type).endswith("CUDA")) / args.iters,
-        "spans": spans,
+        "device_busy_ms_per_batch": prof["busy_ms"],
+        "device_idle_share": 1.0 - prof["busy_ms"] / wall_on,
+        "own_kernels_ms_per_batch": own_ms,
+        "pytorch_kernels_ms_per_batch": prof["busy_ms"] - own_ms,
+        "kernel_launches_per_batch": prof["launches"],
+        "stages_ms_per_batch": prof["stages"],
+        "host_ms_per_stage_per_batch": prof["host_stages"],
         "top_kernels_ms_per_batch": [
-            [k[:90], v / 1e3 / args.iters] for k, v in top[:14]],
+            [k[:90], ms] for k, (ms, _) in list(prof["by_kernel"].items())[:14]],
         "launches_by_kernel_per_batch": {
-            k: n / args.iters for k, n in sorted(
-                launches.items(), key=lambda kv: (-kv[1], kv[0]))},
+            k[:90]: n for k, (_, n) in sorted(
+                prof["by_kernel"].items(), key=lambda kv: (-kv[1][1], kv[0]))},
     }, indent=1))
 
 

@@ -453,3 +453,89 @@ def test_main_path_goes_through_the_kernels(card, detector):
     assert int(got.count().min()) >= 10
     for f in got._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+# ---- conv_mode="direct" and the upsampled first octave ----------------------
+
+@pytest.mark.parametrize("shape", [(16, 480, 640), (2, 101, 75), (3, 30, 40)],
+                         ids=str)
+@pytest.mark.parametrize("detector", ["hessian", "dog"])
+def test_direct_pyramid_kernel_route_equals_plain(card, shape, detector):
+    """The direct pyramid on the card (one blur launch per level past level
+    0, the standalone decimation between octaves, cropped) against its plain
+    route on the card, every level of every octave bit for bit."""
+    cfg = SiftConfig(detector=detector, conv_mode="direct", **SLICE)
+    p = cfg.scale_params()
+    plan = make_plan(*shape[1:], cfg)
+    imgs = _texture_batch(shape, card)
+    reset_launch_counts()
+    got = tpyr._build_pyramid(imgs, plan, cfg)
+    blurred = sum(1 for t in gaussian.direct_taps(p) if len(t))
+    assert launch_counts() == {
+        "blur": 1 + blurred * plan.num_octaves, "octave_chain": 0,
+        "downsample2": plan.num_octaves - 1, "detect_octave": 0,
+        "orientation": 0, "descriptor": 0}
+    want = tpyr._build_pyramid(imgs, plan, cfg, plain=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_u8_input_converts_as_on_the_cpu(card):
+    """A u8 image (a PGM through HessianSift) becomes the same floats on the
+    card as on the CPU: CUDA's division by a scalar would multiply by the
+    reciprocal."""
+    from hessgpu_tpu_torch.ops.resize import to_float
+    x = torch.arange(256, dtype=torch.uint8).reshape(16, 16)
+    assert torch.equal(to_float(x.to(card)).cpu(), to_float(x))
+    img = (np.clip(texture_frame(0, 48, 64), 0, 1) * 255 + 0.5).astype(np.uint8)
+    assert torch.equal(tpyr.prepare_input(img, SiftConfig(), card)[0].cpu(),
+                       tpyr.prepare_input(img, SiftConfig(), "cpu")[0])
+
+
+@pytest.mark.parametrize("detector", ["hessian", "dog"])
+def test_direct_main_path_goes_through_the_kernels(card, detector):
+    imgs = _texture_batch((2, 160, 200), card)
+    cfg = SiftConfig(detector=detector, conv_mode="direct", **SLICE)
+    n_oct = make_plan(160, 200, cfg).num_octaves
+    levels = 4 if detector == "hessian" else 5
+    reset_launch_counts()
+    got = detect_batch(imgs, cfg)
+    assert launch_counts() == {"blur": 1 + levels * n_oct, "octave_chain": 0,
+                               "downsample2": n_oct - 1,
+                               "detect_octave": n_oct, "orientation": 0,
+                               "descriptor": 0}
+    want = detect_batch(imgs, cfg, plain=True)
+    assert int(got.count().min()) >= 10
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_upsampled_octave_through_the_chain_and_detect(card):
+    """DoG at first_octave -1 on a 640x480 batch: octave 0 is 960x1280. The
+    in-place chain and the detect kernel at that size against their plain
+    versions on the card."""
+    from hessgpu_tpu_torch.ops.resize import upsample
+    cfg = SiftConfig(detector="dog", first_octave=-1, **SLICE)
+    p = cfg.scale_params()
+    imgs = upsample(_texture_batch((16, 480, 640), card))
+    assert imgs.shape == (16, 960, 1280)
+    plan = make_plan(960, 1280, cfg)
+    octaves = tpyr._build_pyramid(imgs.contiguous(), plan, cfg)
+    want0 = conv.octave_chain_plain(octaves[0][:, 0].contiguous(),
+                                    gaussian.chain_taps(p))
+    assert torch.equal(octaves[0], want0)
+    nh, nw = plan.octave_shapes[1]
+    lds = p.level_ds - p.level_min
+    assert torch.equal(octaves[1][:, 0],
+                       conv.downsample2_plain(want0[:, lds])[..., :nh, :nw])
+    args = (octaves[0], tpyr._detect_norms(p, cfg), p.key_levels)
+    kw = dict(threshold=p.threshold, edge_threshold=p.edge_threshold,
+              subpixel=True, darkness_adaption=False, detector="dog")
+    gm, ggrad, grot = detect.detect_octave(*args, **kw)
+    wm, wgrad, wrot = detect.detect_octave_plain(*args, **kw)
+    assert torch.equal(gm.valid, wm.valid) and int(wm.valid.sum()) > 1000
+    for f in ("response", "dx", "dy", "ds", "ftype"):
+        assert torch.equal(getattr(gm, f)[wm.valid],
+                           getattr(wm, f)[wm.valid]), f
+    torch.testing.assert_close(ggrad, wgrad, rtol=1e-6, atol=0)
+    torch.testing.assert_close(grot, wrot, rtol=0, atol=2e-6)

@@ -10,8 +10,9 @@ import torch
 import hessgpu_tpu_torch as ht
 from hessgpu_tpu_torch.ops.cuda import build, conv, detect
 from hessgpu_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
-from hessgpu_tpu_torch.pyramid import check_supported
+from hessgpu_tpu_torch.ops.resize import upsample
 from hessgpu_tpu_torch.sfm.synthetic import texture_frame
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SLICE = dict(compute_descriptors=False, fixed_orientation=True)
 
@@ -28,11 +29,18 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import hessgpu_tpu_torch.ops.orientation\n"
         "import hessgpu_tpu_torch.ops.descriptor\n"
         "import hessgpu_tpu_torch.describe\n"
+        "import hessgpu_tpu_torch.detector, hessgpu_tpu_torch.matcher\n"
+        "import hessgpu_tpu_torch.formats, hessgpu_tpu_torch.io_image\n"
+        "import hessgpu_tpu_torch.native, hessgpu_tpu_torch.evaluation\n"
+        "import hessgpu_tpu_torch.features, hessgpu_tpu_torch.ops.resize\n"
+        "import hessgpu_tpu_torch.utils.timing, hessgpu_tpu_torch.utils.viz\n"
+        "import hessgpu_tpu_torch.cli.hess\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'hessgpu_tpu'"
         " or m.startswith('hessgpu_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
+        "assert 'PIL' not in sys.modules\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
@@ -63,29 +71,23 @@ def test_cuda_without_a_card_raises(entry):
     dict(),                                              # the default config
     dict(compute_descriptors=False),                     # orientations
     dict(fixed_orientation=True),                        # descriptors
-    dict(SLICE, detector="dog", first_octave=-1),        # upsampled octave
-    dict(SLICE, conv_mode="direct"),
+    dict(detector="dog", first_octave=-1),               # upsampled octave
+    dict(conv_mode="direct"),
 ], ids=["default", "orientation", "descriptors", "first_octave", "direct"])
 def test_unported_configs_raise(kw):
-    """What the port does not cover raises; the configurations that did so
-    before the per-keypoint stages were ported now run, and return real
-    orientations and descriptors."""
+    """No configuration raises any more (the name is kept from when these
+    did): each of these once raised NotImplementedError and now runs, through detect_and_describe and
+    detect_batch alike, and returns real orientations and descriptors where
+    it asks for them. detect_batch takes the octave input as given (it
+    neither upsamples nor subsamples, as the JAX package's batch entry), so
+    at first_octave < 0 it is fed the upsampled frame."""
     cfg = ht.SiftConfig(**kw)
     img = texture_frame(2, 96, 128)
-    if cfg.first_octave < 0 or cfg.conv_mode != "chain":
-        with pytest.raises(NotImplementedError, match="does not port"):
-            check_supported(cfg)
-        with pytest.raises(NotImplementedError):
-            ht.detect_and_describe(img, cfg, device="cpu")
-        with pytest.raises(NotImplementedError):
-            ht.detect_batch(img[None], cfg, device="cpu")
-        with pytest.raises(NotImplementedError):
-            ht.describe_keypoints(img, np.array([[20.0, 20.0, 2.0]]), cfg,
-                                  device="cpu")
-        return
-    check_supported(cfg)
     one, _ = ht.detect_and_describe(img, cfg, device="cpu")
-    batch = ht.detect_batch(img[None], cfg, device="cpu")
+    x = torch.from_numpy(img)
+    if cfg.first_octave < 0:
+        x = upsample(x, -cfg.first_octave)
+    batch = ht.detect_batch(x[None], cfg, device="cpu")
     assert int(one.count()) >= 3
     for a, b in zip(one, batch):
         assert torch.equal(a, b[0])
@@ -94,6 +96,11 @@ def test_unported_configs_raise(kw):
     assert bool((one.desc[v].abs().amax(-1) > 0).all()) \
         == cfg.compute_descriptors
     assert not bool(one.desc[~v].any()) and not bool(one.theta[~v].any())
+    keys = ht.to_numpy_trimmed(one)
+    out = ht.describe_keypoints(
+        img, np.stack([keys["x"], keys["y"], keys["sigma"]], 1), cfg,
+        has_orientation=False, device="cpu")
+    assert np.isfinite(out["desc"]).all() and out["desc"].any()
 
 
 def test_hessian_clamps_a_negative_first_octave():
