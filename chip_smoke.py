@@ -54,6 +54,20 @@ there is no device, and on any failed phase. Phases, one JSON line each:
              frame 0's size and at 16384 x 16384; ms of _match_core and of
              _guided_gate
   evaluation evaluate_repeatability on frame 0 under the rotation, card = CPU
+  ba         bench_ba.py's problem (64 cameras, 4096 points, 32768
+             observations, 30 CG steps per LM step): one lm_step on the card
+             and on the CPU from the same state (cost0 within 1e-5 relative,
+             cost1 within 1e-3, accepted equal); LM and CG iterations/s over
+             10 LM steps after 2 warm-up steps; launches and device busy per
+             LM step (utils.timing.device_profile); the final RMSE on the
+             card and the CPU within 1e-2 px; two card runs bit-equal
+  sfm        the synthetic TUM sequence (write_tum_sequence's scene, 40
+             frames at 640x480, rendered in memory): HessianSift(threshold
+             0.003).run per frame on the card (launches pinned), then
+             reconstruct_sequence on the card and on the CPU from those
+             features: all 40 frames registered on both, the same view_ids,
+             the card's ATE at most twice the JAX package's (JAX_SFM_ATE);
+             seconds for detection, reconstruction, its BA and its SVDs
   blur       the octave-0 blur's ms beside the card's name and power limit
   {"kernels": [...]}   one entry per kernel: launches on the main path,
              error, times, bound; path_ms and path_bound_ms sum a batch's
@@ -140,6 +154,18 @@ DETAIL = ("fused_into", "octave_ms_without_decimation",
           "octave_ms", "valid_cells", "bound_ms_dense_contract",
           "path_bound_ms_dense_contract", "octave0_warp_share_nms",
           "octave0_warp_share_keypoint", "ms_960x1280", "launches_by_path")
+# ba phase: bench_ba.py's problem (64 cameras, 4096 points, every camera
+# sees every 8th point: 32768 observations), built here in NumPy
+BA_CAMS, BA_PTS, BA_SEE_EVERY = 64, 4096, 8
+BA_CG_ITERS, BA_WARMUP, BA_ITERS = 30, 2, 10
+# sfm phase: write_tum_sequence's scene (seed 7, its K), 40 frames at
+# 640x480, SiftConfig(threshold=0.003), reconstruct_sequence's defaults
+SFM_FRAMES, SFM_SEED, SFM_THRESHOLD = 40, 7, 0.003
+# The JAX package's ATE on that sequence (write_tum_sequence(n_frames=40,
+# h=480, w=640) -> evaluate_sequence_ate, SiftConfig(threshold=0.003),
+# mesh=None) on a CPU host: scripts/jax_sfm_ate_reference.py, 40 of 40
+# frames registered, 1944 points. The card's ATE must be at most twice it.
+JAX_SFM_ATE = 0.000959249298848135
 KERNEL_INFO = {
     "blur": ("hessgpu_tpu_torch/csrc/conv.cu",
              "hessgpu_tpu/ops/pallas/conv.py:381"),
@@ -166,6 +192,44 @@ def write_pgm(path, img_u8):
         f.write(f"P5\n{img_u8.shape[1]} {img_u8.shape[0]}\n255\n".encode())
         f.write(np.ascontiguousarray(img_u8).tobytes())
     return path
+
+
+def ba_problem():
+    """bench_ba.py's problem in NumPy: cameras on a ring looking at a point
+    cloud, Gaussian pixel noise (0.5 px), perturbed start (0.05)."""
+    import numpy as np
+    import torch
+
+    from hessgpu_tpu_torch.sfm.ba import so3_exp
+
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-2, 2, (BA_PTS, 3)).astype(np.float32)
+    X[:, 2] += 6.0
+    R_list, t_list = [], []
+    for c in range(BA_CAMS):
+        ang = 0.4 * np.sin(2 * np.pi * c / BA_CAMS)
+        w = np.array([0.0, ang, 0.0], np.float32)
+        R = so3_exp(torch.from_numpy(w)).numpy()
+        cpos = np.array([3.0 * np.sin(ang), 0.3 * np.cos(ang), 0.0])
+        R_list.append(R)
+        t_list.append(-R @ cpos)
+    R = np.stack(R_list).astype(np.float32)
+    t = np.stack(t_list).astype(np.float32)
+    f, cx, cy = 800.0, 320.0, 240.0
+    intr = np.tile(np.array([f, cx, cy], np.float32), (BA_CAMS, 1))
+    cam_idx, pt_idx, uvs = [], [], []
+    for c in range(BA_CAMS):
+        pts = np.arange(c % BA_SEE_EVERY, BA_PTS, BA_SEE_EVERY)
+        Xc = X[pts] @ R[c].T + t[c]
+        uv = Xc[:, :2] / Xc[:, 2:3] * f + np.array([cx, cy])
+        cam_idx.append(np.full(len(pts), c))
+        pt_idx.append(pts)
+        uvs.append(uv + rng.normal(0, 0.5, uv.shape))
+    uv = np.concatenate(uvs)
+    return dict(R=R, t=t + rng.normal(0, 0.05, t.shape),
+                X=X + rng.normal(0, 0.05, X.shape), intr=intr,
+                cam_idx=np.concatenate(cam_idx), pt_idx=np.concatenate(pt_idx),
+                uv=uv, weight=np.ones(len(uv), np.float32))
 
 
 def emit(phase, **fields):
@@ -1174,7 +1238,8 @@ def main():
                                               rotation_homography, warp_image)
     from hessgpu_tpu_torch.formats import load_sift_text
     from hessgpu_tpu_torch.ops.resize import upsample
-    from hessgpu_tpu_torch.utils.timing import REFERENCE_BUCKETS, device_profile
+    from hessgpu_tpu_torch.utils.timing import (REFERENCE_BUCKETS,
+                                                device_profile, synchronize)
 
     def wall_ms(fn, reps=5):
         """Host clock around fn() and a synchronize, after one warm-up:
@@ -1567,6 +1632,151 @@ def main():
         fail(f"evaluate_repeatability: card {scores[0]}, CPU {scores[1]}")
     emit("evaluation", angle=10, scale=1.0,
          repeatability=scores[0]["mean"], card_equals_cpu=True)
+
+    # ---- ba: bundle adjustment at bench_ba.py's size ---------------------
+    from hessgpu_tpu_torch.convert import ba_from_numpy
+    from hessgpu_tpu_torch.sfm import ba as tba
+
+    ba_np = ba_problem()
+    st_card, pr_card = ba_from_numpy(device=dev, **ba_np)
+    st_cpu, pr_cpu = ba_from_numpy(device="cpu", **ba_np)
+    lam0 = 1e-3
+    step_card = tba.lm_step(st_card, pr_card, torch.tensor(lam0, device=dev),
+                            cg_iters=BA_CG_ITERS)
+    step_cpu = tba.lm_step(st_cpu, pr_cpu, torch.tensor(lam0),
+                           cg_iters=BA_CG_ITERS)
+    c0 = [float(step_card[2]), float(step_cpu[2])]
+    c1 = [float(step_card[3]), float(step_cpu[3])]
+    if abs(c0[0] - c0[1]) > 1e-5 * abs(c0[1]) \
+            or abs(c1[0] - c1[1]) > 1e-3 * abs(c1[1]) \
+            or bool(step_card[4]) != bool(step_cpu[4]):
+        fail(f"ba: lm_step card {c0[0]} -> {c1[0]} ({bool(step_card[4])}), "
+             f"CPU {c0[1]} -> {c1[1]} ({bool(step_cpu[4])})")
+
+    def lm_run(st, pr, iters):
+        lam = torch.tensor(lam0, device=st.R.device)
+        for _ in range(iters):
+            st, lam, _, _, _ = tba.lm_step(st, pr, lam, cg_iters=BA_CG_ITERS)
+        return st
+
+    lm_run(st_card, pr_card, BA_WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_card = lm_run(st_card, pr_card, BA_ITERS)
+    torch.cuda.synchronize()
+    ba_s = time.perf_counter() - t0
+    out_card2 = lm_run(st_card, pr_card, BA_ITERS)
+    out_cpu = lm_run(st_cpu, pr_cpu, BA_ITERS)
+    rmse = [tba.reprojection_rmse(out_card, pr_card),
+            tba.reprojection_rmse(out_cpu, pr_cpu)]
+    rmse2 = tba.reprojection_rmse(out_card2, pr_card)
+    if abs(rmse[0] - rmse[1]) > 1e-2 or not np.isfinite(rmse[0]):
+        fail(f"ba: final RMSE {rmse[0]} px on the card, {rmse[1]} on the CPU")
+    # the segment sums are ordered (sfm/ba.py), so a card run repeats itself
+    for f in ("R", "t", "X"):
+        if not same(getattr(out_card, f), getattr(out_card2, f)):
+            fail(f"ba: two card runs of the same LM steps differ in {f}")
+    prof = device_profile(lambda: tba.lm_step(
+        st_card, pr_card, torch.tensor(lam0, device=dev),
+        cg_iters=BA_CG_ITERS), runs=3)
+    emit("ba", cameras=BA_CAMS, points=BA_PTS,
+         observations=int(pr_card.uv.shape[0]), cg_iters=BA_CG_ITERS,
+         lm_step_cost0_card_cpu=c0, lm_step_cost1_card_cpu=c1,
+         accepted=bool(step_card[4]),
+         lm_iters_per_s=BA_ITERS / ba_s, cg_iters_per_s=BA_ITERS
+         * BA_CG_ITERS / ba_s, timed_iters=BA_ITERS, timed_s=ba_s,
+         launches_per_lm_iter=prof["launches"],
+         device_busy_ms_per_lm_iter=prof["busy_ms"],
+         wall_ms_per_lm_iter_profiler_on=prof["wall_ms"],
+         top_device_work=dict(list(prof["by_kernel"].items())[:8]),
+         final_rmse_px_card_cpu=rmse, rmse_px_second_card_run=rmse2,
+         two_card_runs_max_abs_diff={
+             f: max_abs(getattr(out_card, f), getattr(out_card2, f))
+             for f in ("R", "t", "X")},
+         card_vs_cpu_max_abs_diff={
+             f: max_abs(getattr(out_card, f).cpu(), getattr(out_cpu, f))
+             for f in ("R", "t", "X")},
+         nvidia_smi=smi_line)
+    del st_card, pr_card, out_card, out_card2
+
+    # ---- sfm: the synthetic TUM sequence, detect + reconstruct + ATE ------
+    from hessgpu_tpu_torch.sfm import incremental as tinc
+    from hessgpu_tpu_torch.sfm.evaluate import ate_rmse, camera_centers
+    from hessgpu_tpu_torch.sfm.synthetic import tum_sequence
+
+    seq_frames, seq_K, _, seq_centers = tum_sequence(
+        SFM_FRAMES, HEIGHT, WIDTH, seed=SFM_SEED)
+    sift = HessianSift(SiftConfig(threshold=SFM_THRESHOLD))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    seq_feats = [sift.run(f) for f in seq_frames]
+    torch.cuda.synchronize()
+    detect_s = time.perf_counter() - t0
+    launches = launch_counts()
+    want_launches = {k: SFM_FRAMES * v
+                     for k, v in EXPECTED_LAUNCHES_DEFAULT.items()}
+    if launches != want_launches:
+        fail(f"sfm: HessianSift.run launch counts {launches} != "
+             f"{want_launches}")
+    launches_by_path[f"sfm_{SFM_FRAMES}_frames"] = launches
+
+    def reconstruct(device):
+        """reconstruct_sequence on `device`, its BA and (on the card) its
+        SVDs timed by the host clock around a synchronize."""
+        stats = {"ba_s": 0.0, "svd": {}}
+        real_ba, real_svd = tinc.bundle_adjust, torch.linalg.svd
+
+        def timed_ba(*a, **kw):
+            t = time.perf_counter()
+            out = real_ba(*a, **kw)
+            synchronize(device)
+            stats["ba_s"] += time.perf_counter() - t
+            return out
+
+        def timed_svd(A, *a, **kw):
+            synchronize(device)
+            t = time.perf_counter()
+            out = real_svd(A, *a, **kw)
+            synchronize(device)
+            k = stats["svd"].setdefault("x".join(map(str, A.shape)),
+                                        [0, 0.0])
+            k[0] += 1
+            k[1] += time.perf_counter() - t
+            return out
+
+        tinc.bundle_adjust = timed_ba
+        torch.linalg.svd = timed_svd
+        try:
+            t = time.perf_counter()
+            rec = tinc.reconstruct_sequence(seq_feats, seq_K, device=device)
+            synchronize(device)
+            stats["seconds"] = time.perf_counter() - t
+        finally:
+            tinc.bundle_adjust, torch.linalg.svd = real_ba, real_svd
+        if rec is None:
+            fail(f"sfm: reconstruct_sequence on {device} returned None")
+        ids = rec.view_ids
+        stats["svd_s"] = sum(v[1] for v in stats["svd"].values())
+        stats.update(
+            registered=rec.num_cameras, points=rec.num_points,
+            ate=ate_rmse(camera_centers(rec.R, rec.t), seq_centers[ids]))
+        return rec, stats
+
+    rec_card, sfm_card = reconstruct("cuda")
+    rec_cpu, sfm_cpu = reconstruct("cpu")
+    if rec_card.view_ids != list(range(SFM_FRAMES)) \
+            or rec_cpu.view_ids != rec_card.view_ids:
+        fail(f"sfm: view_ids on the card {rec_card.view_ids}, on the CPU "
+             f"{rec_cpu.view_ids}; all {SFM_FRAMES} expected")
+    if not sfm_card["ate"] <= 2 * JAX_SFM_ATE:
+        fail(f"sfm: ATE {sfm_card['ate']} on the card, limit "
+             f"{2 * JAX_SFM_ATE} (twice the JAX package's)")
+    emit("sfm", frames=SFM_FRAMES, height=HEIGHT, width=WIDTH,
+         threshold=SFM_THRESHOLD, features=[len(f["x"]) for f in seq_feats],
+         launches=launches, detect_s=detect_s,
+         view_ids_equal=True, card=sfm_card, cpu=sfm_cpu,
+         jax_ate_reference=JAX_SFM_ATE, ate_limit=2 * JAX_SFM_ATE,
+         nvidia_smi=smi_line)
 
     emit("blur", octave0_ms=timing["blur"]["ms"],
          path_ms_by_detector=timing["blur"]["path_ms_by_detector"],

@@ -12,7 +12,9 @@ orientations per keypoint, 128-d or half-SIFT descriptors), both detector
 personalities, through six kernels; the keypoint re-entry service
 (describe_keypoints, describe_rectangles); the HessianSift and SiftMatcher
 facades, the .sift formats, the hess CLI (python -m
-hessgpu_tpu_torch.cli.hess) and the repeatability evaluation:
+hessgpu_tpu_torch.cli.hess), the repeatability evaluation, and the SfM
+stack on one device (hessgpu_tpu_torch.sfm: two-view geometry, bundle
+adjustment, pose graph, incremental reconstruction):
 
     from hessgpu_tpu_torch import HessianSift, SiftMatcher, SiftConfig
     sift = HessianSift(SiftConfig())       # device="cpu" to ask for the CPU

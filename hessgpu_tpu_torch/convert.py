@@ -103,3 +103,40 @@ def level_maps_from_numpy(grads: Sequence[np.ndarray],
                      tuple(group(r) for r in rots))
     check_level_maps(maps)
     return maps
+
+
+def ba_from_numpy(R, t, X, intr, cam_idx, pt_idx, uv, weight,
+                  device="cuda"):
+    """A bundle-adjustment problem given as arrays (the fields of the JAX
+    package's BAState and BAProblem) -> the port's (BAState, BAProblem) on
+    `device`: float32 geometry, int64 observation indices."""
+    from .sfm.ba import BAProblem, BAState
+
+    def f32(a):
+        return torch.as_tensor(np.array(a, np.float32), device=device)
+
+    def idx(a):
+        return torch.as_tensor(np.array(a, np.int64), device=device)
+
+    return (BAState(R=f32(R), t=f32(t), X=f32(X), intr=f32(intr)),
+            BAProblem(cam_idx=idx(cam_idx), pt_idx=idx(pt_idx), uv=f32(uv),
+                      weight=f32(weight)))
+
+
+def reconstruction_from_numpy(arrays: Mapping[str, np.ndarray]):
+    """A reconstruction in the arrays of the .npz checkpoint (R, t, K,
+    points, obs, tracks, view_ids; either package's sfm.io writes them) ->
+    the port's Reconstruction, which lives on the host."""
+    from .sfm.incremental import Reconstruction
+
+    return Reconstruction(
+        R=[r for r in arrays["R"]],
+        t=[t for t in arrays["t"]],
+        K=arrays["K"],
+        points=arrays["points"],
+        obs=[(int(c), int(p), float(u), float(v))
+             for c, p, u, v in arrays["obs"]],
+        track_of={(int(im), int(fi)): int(t)
+                  for im, fi, t in arrays["tracks"]},
+        view_ids=[int(v) for v in arrays["view_ids"]],
+    )

@@ -23,12 +23,11 @@ product and two argmax/masks.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
 from .pyramid import resolve_device
+from .utils.precision import full_f32_matmul
 
 INV_512_SQ = 1.0 / (512.0 * 512.0)
 
@@ -38,21 +37,9 @@ def quantize_descriptors(desc: np.ndarray) -> np.ndarray:
     return np.clip(np.floor(512.0 * desc + 0.5), 0, 255).astype(np.uint8)
 
 
-@contextlib.contextmanager
-def _full_f32_matmul():
-    """Float32 matrix products in IEEE float32 for the block (TF32 off on
-    the card); the caller's setting comes back after it."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def descriptor_dots(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     """Exact integer dot matrix (N1, N2) of u8 descriptors, as float32."""
-    with _full_f32_matmul():
+    with full_f32_matmul():
         return d1.to(torch.float32) @ d2.to(torch.float32).T
 
 
@@ -100,7 +87,7 @@ def _guided_gate(loc1, loc2, H, hdistmax, F, fdistmax):
     Homography: |H*x1 - x2|_inf-style per-coordinate test; fundamental:
     Sampson error x2'Fx1 (ProgramCU.cu:3618-3643).
     """
-    with _full_f32_matmul():
+    with full_f32_matmul():
         ones = torch.ones((loc1.shape[0], 1), dtype=loc1.dtype,
                           device=loc1.device)
         x1h = torch.cat([loc1, ones], dim=1)               # (N1, 3)

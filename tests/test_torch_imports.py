@@ -35,6 +35,13 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import hessgpu_tpu_torch.features, hessgpu_tpu_torch.ops.resize\n"
         "import hessgpu_tpu_torch.utils.timing, hessgpu_tpu_torch.utils.viz\n"
         "import hessgpu_tpu_torch.cli.hess\n"
+        "import hessgpu_tpu_torch.utils.precision\n"
+        "import hessgpu_tpu_torch.sfm.ba, hessgpu_tpu_torch.sfm.twoview\n"
+        "import hessgpu_tpu_torch.sfm.posegraph\n"
+        "import hessgpu_tpu_torch.sfm.incremental, hessgpu_tpu_torch.sfm.io\n"
+        "import hessgpu_tpu_torch.sfm.datasets\n"
+        "import hessgpu_tpu_torch.sfm.evaluate\n"
+        "import hessgpu_tpu_torch.sfm.synthetic\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'hessgpu_tpu'"
         " or m.startswith('hessgpu_tpu.')]\n"
