@@ -53,10 +53,28 @@ there is no device, and on any failed phase. Phases, one JSON line each:
              card's matches equal the CPU's; dots equal to int64 numpy at
              frame 0's size and at 16384 x 16384; ms of _match_core and of
              _guided_gate
+  server     the port's hess_server (hessgpu_tpu_torch/csrc/hess_server.cpp,
+             built with g++) spawned on loopback with -device cuda and driven
+             by the port's RemoteSift: run_sift_data on frames 0-3 (u8
+             640x480), run_sift on a PGM, run_sift_keys, set_keypoint_list +
+             run_sift_current, each reply's bytes against an in-process
+             HessianSift on the card (a field that is not bit-equal is named
+             and held to the facade's card-vs-CPU rules); match over the wire
+             against SiftMatcher; initialize answers 1; build and start
+             seconds, ms per request over the wire beside the in-process ms
+  match_tiled  bench_match.py's table (seed 0, N1 = N2 = 65536, d2 = d1
+             rolled by 7): match_sharded(mesh=None) mutual-best at n2_tile
+             16384 equal to n2_tile 8192; 256 sampled rows (non-mutual) equal
+             to float64 numpy; at 16384 x 16384 the tiled result equal to the
+             untiled _match_core, plain and guided by H; seconds per table
+             (warm-up, best of 3 windows of >= 1 s, every rep), Gpairs/s,
+             matches, peak memory, the bound (FP32 operations; the bytes of
+             the float32 table's passes beside it)
   evaluation evaluate_repeatability on frame 0 under the rotation, card = CPU
   ba         bench_ba.py's problem (64 cameras, 4096 points, 32768
              observations, 30 CG steps per LM step): one lm_step on the card
-             and on the CPU from the same state (cost0 within 1e-5 relative,
+             and on the CPU (at one torch thread) from the same state (cost0
+             within 1e-5 relative,
              cost1 within 1e-3, accepted equal); LM and CG iterations/s over
              10 LM steps after 2 warm-up steps; launches and device busy per
              LM step (utils.timing.device_profile); the final RMSE on the
@@ -65,7 +83,8 @@ there is no device, and on any failed phase. Phases, one JSON line each:
              frames at 640x480, rendered in memory): HessianSift(threshold
              0.003).run per frame on the card (launches pinned), then
              reconstruct_sequence on the card and on the CPU from those
-             features: all 40 frames registered on both, the same view_ids,
+             features (the CPU at one torch thread, where it repeats
+             itself): all 40 frames registered on both, the same view_ids,
              the card's ATE at most twice the JAX package's (JAX_SFM_ATE);
              seconds for detection, reconstruction, its BA and its SVDs
   blur       the octave-0 blur's ms beside the card's name and power limit
@@ -166,6 +185,8 @@ SFM_FRAMES, SFM_SEED, SFM_THRESHOLD = 40, 7, 0.003
 # mesh=None) on a CPU host: scripts/jax_sfm_ate_reference.py, 40 of 40
 # frames registered, 1944 points. The card's ATE must be at most twice it.
 JAX_SFM_ATE = 0.000959249298848135
+# match_tiled phase: bench_match.py's table (65536 x 65536, 16384 tiles)
+MT_N, MT_TILE = 65536, 16384
 KERNEL_INFO = {
     "blur": ("hessgpu_tpu_torch/csrc/conv.cu",
              "hessgpu_tpu/ops/pallas/conv.py:381"),
@@ -230,6 +251,20 @@ def ba_problem():
                 X=X + rng.normal(0, 0.05, X.shape), intr=intr,
                 cam_idx=np.concatenate(cam_idx), pt_idx=np.concatenate(pt_idx),
                 uv=uv, weight=np.ones(len(uv), np.float32))
+
+
+def one_torch_thread(fn, *args, **kw):
+    """fn(*args, **kw) at one torch CPU thread, the caller's count restored
+    after: the CPU yardsticks run there, where the ordered segment sums of
+    sfm/ba.py add in observation order (several threads add at once, in no
+    fixed order)."""
+    import torch
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn(*args, **kw)
+    finally:
+        torch.set_num_threads(before)
 
 
 def emit(phase, **fields):
@@ -1625,6 +1660,232 @@ def main():
          nvidia_smi=smi_line)
     del big_a, big_b
 
+    # ---- server: the port's hess_server on loopback, on the card ----------
+    from hessgpu_tpu_torch import server_build
+    from hessgpu_tpu_torch.features import keypoint_buffer
+    from hessgpu_tpu_torch.parallel.client import RemoteSift
+
+    def wire_vs_in_process(kp, desc, feats, what):
+        """A reply's keypoint and descriptor bytes against the in-process
+        run's: bit for bit, or else each differing field named and held to
+        frame_vs_cpu's rules."""
+        want_kp = keypoint_buffer(feats)
+        want_desc = np.ascontiguousarray(feats["desc"], np.float32)
+        if kp.shape != want_kp.shape or desc.shape != want_desc.shape:
+            fail(f"server {what}: {kp.shape} / {desc.shape} against "
+                 f"{want_kp.shape} / {want_desc.shape} in process")
+        if kp.tobytes() == want_kp.tobytes() \
+                and desc.tobytes() == want_desc.tobytes():
+            return []
+        names = ("x", "y", "sigma", "theta", "response", "level|type")
+        differing = [n for i, n in enumerate(names)
+                     if kp[:, i].tobytes() != want_kp[:, i].tobytes()]
+        if desc.tobytes() != want_desc.tobytes():
+            differing.append("desc")
+        for i, n in enumerate(names):
+            if n in ("sigma", "theta"):
+                continue
+            if kp[:, i].tobytes() != want_kp[:, i].tobytes():
+                fail(f"server {what}: {n} differs from the in-process run")
+        if not np.allclose(kp[:, 2], want_kp[:, 2], rtol=1e-6, atol=0):
+            fail(f"server {what}: sigma differs from the in-process run")
+        dth = np.abs(np.mod(kp[:, 3] - want_kp[:, 3] + np.pi, 2 * np.pi)
+                     - np.pi)
+        moved = dth > 1e-6
+        if dth.max(initial=0) > quantum + 1e-6 or moved.sum() > len(kp) // 100:
+            fail(f"server {what}: theta differs on {int(moved.sum())} "
+                 f"features, by up to {float(dth.max())}")
+        err = np.abs(desc[~moved] - want_desc[~moved]).max(initial=0)
+        if err > 1e-5:
+            fail(f"server {what}: descriptors {err} apart")
+        return differing
+
+    def free_port():
+        import socket
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            return sk.getsockname()[1]
+
+    t0 = time.perf_counter()
+    server_bin = str(server_build.build())
+    server_build_s = time.perf_counter() - t0
+    workdir = tempfile.mkdtemp(prefix="hessgpu_server_")
+    try:
+        u8 = [(np.clip(frames[i], 0, 1) * 255 + 0.5).astype(np.uint8)
+              for i in range(4)]
+        pgm0 = write_pgm(os.path.join(workdir, "f0.pgm"), u8[0])
+        sift = HessianSift()
+        reset_launch_counts()
+        feats = [sift.run(u) for u in u8]
+        torch.cuda.synchronize()
+        if launch_counts() != {k: 4 * v for k, v in
+                               EXPECTED_LAUNCHES_DEFAULT.items()}:
+            fail(f"server: in-process launch counts {launch_counts()}")
+        env = dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        differing = {}
+        t0 = time.perf_counter()
+        with RemoteSift(port=free_port(), server_binary=server_bin,
+                        spawn_args=["-device", "cuda"], env=env) as r:
+            if not r.initialize():
+                fail("server: initialize answered 0 on the card")
+            # the server imports the port in the connection's thread
+            server_start_s = time.perf_counter() - t0
+            for i in range(4):
+                if not r.run_sift_data(u8[i]):
+                    fail(f"server: run_sift_data failed on frame {i}")
+                differing[f"run_sift_data_{i}"] = wire_vs_in_process(
+                    *r.get_feature_vector(), feats[i], f"frame {i}")
+            if not r.run_sift(pgm0):
+                fail("server: run_sift failed on a PGM")
+            differing["run_sift_pgm"] = wire_vs_in_process(
+                *r.get_feature_vector(), sift.run(pgm0), "run_sift")
+            keys = keypoint_buffer(feats[0])[:64]
+            r.run_sift_data(u8[0])
+            if not r.run_sift_keys(keys[:, :4]):
+                fail("server: run_sift_keys failed")
+            differing["run_sift_keys"] = wire_vs_in_process(
+                *r.get_feature_vector(),
+                sift.run_with_keypoints(u8[0], keys[:, :4]), "run_sift_keys")
+            r.set_keypoint_list(keys)
+            if not r.run_sift_current():
+                fail("server: set_keypoint_list + run_sift_current failed")
+            differing["set_keypoint_list"] = wire_vs_in_process(
+                *r.get_feature_vector(),
+                sift.run_with_keypoints(u8[0], keys), "set_keypoint_list")
+            wire_matches = {}
+            for name, (a, b) in (("frames_0_1", (feats[0], feats[1])),
+                                 ("frame0_rotated", (fa, fb))):
+                r.match_set_descriptors(0, a["desc"])
+                r.match_set_descriptors(1, b["desc"])
+                got = r.match()
+                if not np.array_equal(got, SiftMatcher().match(a, b)):
+                    fail(f"server: match over the wire ({name}) differs "
+                         "from SiftMatcher in process")
+                wire_matches[name] = len(got)
+            if wire_matches["frame0_rotated"] < 50:
+                fail(f"server: {wire_matches} matches")
+            wire_ms = []
+            for _ in range(11):
+                t0 = time.perf_counter()
+                r.run_sift_data(u8[0])
+                r.get_feature_vector()
+                wire_ms.append((time.perf_counter() - t0) * 1e3)
+            wire_ms = wire_ms[1:]
+        local_ms = []
+        for _ in range(11):
+            t0 = time.perf_counter()
+            keypoint_buffer(sift.run(u8[0]))
+            local_ms.append((time.perf_counter() - t0) * 1e3)
+        local_ms = local_ms[1:]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit("server", frames=4, height=HEIGHT, width=WIDTH,
+         features=[len(f["x"]) for f in feats],
+         build_s=server_build_s, gxx_seconds=server_build.build_seconds,
+         spawn_to_first_answer_s=server_start_s,
+         fields_not_bit_equal={k: v for k, v in differing.items() if v},
+         bit_equal=not any(differing.values()), wire_matches=wire_matches,
+         wire_ms_per_request=wire_ms,
+         wire_ms_median=statistics.median(wire_ms),
+         in_process_ms=local_ms, in_process_ms_median=statistics.median(
+             local_ms), nvidia_smi=smi_line)
+
+    # ---- match_tiled: bench_match.py's 65536 x 65536 table ----------------
+    from hessgpu_tpu_torch.parallel.distributed import match_sharded
+
+    rng = np.random.default_rng(0)
+    d = rng.standard_normal((MT_N, 128)).astype(np.float32)
+    d = np.abs(d) / np.linalg.norm(d, axis=1, keepdims=True)
+    mt1 = (d * 512).astype(np.uint8)
+    mt2 = np.roll(mt1, 7, axis=0)
+    del d
+    mt1_t, mt2_t = (torch.from_numpy(a).to(dev) for a in (mt1, mt2))
+
+    def table(tile, mutual=True, a=mt1_t, b=mt2_t, **kw):
+        return match_sharded(a, b, mutual_best=mutual, n2_tile=tile, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    m_tile = table(MT_TILE)
+    torch.cuda.synchronize()
+    mt_peak = torch.cuda.max_memory_allocated() - base_mem
+    if not torch.equal(m_tile, table(MT_TILE // 2)):
+        fail(f"match_tiled: n2_tile {MT_TILE} and {MT_TILE // 2} differ")
+    mt_matches = int((m_tile >= 0).sum())
+    planted = float((m_tile == (torch.arange(MT_N, device=dev) + 7)
+                     % MT_N).float().mean())
+    # 256 rows (non-mutual) against float64 numpy, exact for these sums; a
+    # row whose test lands within 1e-6 rad of its threshold is counted apart
+    rows_only = table(MT_TILE, mutual=False).cpu().numpy()
+    sel = np.random.RandomState(5).choice(MT_N, 256, replace=False)
+    dots64 = mt1[sel].astype(np.float64) @ mt2.astype(np.float64).T
+    best = dots64.argmax(1)
+    bv = dots64[np.arange(256), best]
+    dots64[np.arange(256), best] = -np.inf
+    nv = dots64.max(1)
+    del dots64
+    dist = np.arccos(np.minimum(bv / 512.0 ** 2, 1.0))
+    distn = np.arccos(np.clip(nv / 512.0 ** 2, -1.0, 1.0))
+    want = np.where((dist < 0.7) & (dist < 0.8 * distn) & (bv > 0), best, -1)
+    near = (np.abs(dist - 0.7) < 1e-6) | (np.abs(dist - 0.8 * distn) < 1e-6)
+    if not np.array_equal(rows_only[sel][~near], want[~near]):
+        fail("match_tiled: sampled rows differ from float64 numpy")
+    # 16384 x 16384: tiled against the untiled _match_core, plain and guided
+    n = MT_TILE
+    sub1, sub2 = mt1_t[:n], mt2_t[:n]
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    if not torch.equal(table(MT_TILE // 4, a=sub1, b=sub2),
+                       tmatch._match_core(sub1, sub2, ones, ones, 0.7, 0.8)):
+        fail("match_tiled: 16384^2 tiled differs from _match_core (plain)")
+    g = np.random.RandomState(12)
+    loc1 = (g.rand(n, 2) * [WIDTH, HEIGHT]).astype(np.float32)
+    x2 = np.c_[np.roll(loc1, 7, axis=0), np.ones(n)] @ H10.T
+    loc2 = (x2[:, :2] / x2[:, 2:]).astype(np.float32)
+    l1, l2 = (torch.from_numpy(a).to(dev) for a in (loc1, loc2))
+    Hg = torch.from_numpy(H10.astype(np.float32)).to(dev)
+    gate = tmatch._guided_gate(l1, l2, Hg, 32.0, torch.eye(3, device=dev),
+                               1.0e20)
+    want_g = tmatch._match_core(sub1, sub2, ones, ones, 0.7, 0.8, gate=gate)
+    del gate
+    got_g = table(MT_TILE // 4, a=sub1, b=sub2, loc1=l1, loc2=l2,
+                  H=H10.astype(np.float32))
+    if not torch.equal(got_g, want_g) or int((got_g >= 0).sum()) < n // 2:
+        fail("match_tiled: 16384^2 guided tiled differs from _match_core")
+    # seconds per table: warm-up, then the best of 3 windows of >= 1 s
+    table(MT_TILE)
+    torch.cuda.synchronize()
+    mt_reps = []
+    for _ in range(3):
+        calls, t0 = 0, time.perf_counter()
+        while True:
+            table(MT_TILE)
+            torch.cuda.synchronize()
+            calls += 1
+            if time.perf_counter() - t0 >= 1.0:
+                break
+        mt_reps.append((time.perf_counter() - t0) / calls)
+    mt_s = min(mt_reps)
+    mt_flops = MT_N * MT_N * 128 * 2
+    # the float32 table as this design walks it: written once by the
+    # product, read by the row max and second and the column max and second
+    mt_pass_bytes = 5 * MT_N * MT_N * 4
+    emit("match_tiled", n1=MT_N, n2=MT_N, n2_tile=MT_TILE,
+         equals_tile_8192=True, matches=mt_matches,
+         planted_share=planted, sampled_rows_equal_float64=256 - int(
+             near.sum()), sampled_rows_near_threshold=int(near.sum()),
+         equals_match_core_16384=True,
+         guided_matches_16384=int((got_g >= 0).sum()),
+         seconds_per_table=mt_s, seconds_reps=mt_reps,
+         gpairs_per_s=MT_N * MT_N / mt_s / 1e9, peak_memory_bytes=mt_peak,
+         bound_ms=bound(2 * MT_N * 128 + MT_N * 8, mt_flops)[0],
+         bound_by=bound(2 * MT_N * 128 + MT_N * 8, mt_flops)[1],
+         flops=mt_flops, passes_bytes=mt_pass_bytes,
+         passes_bytes_ms=mt_pass_bytes / HBM_BYTES_PER_S * 1e3,
+         nvidia_smi=smi_line)
+    del mt1_t, mt2_t, sub1, sub2, m_tile
+
     # ---- evaluation: repeatability under the 10 degree rotation ------------
     scores = [evaluate_repeatability(frames[0], angles=(10,), scales=(1.0,),
                                      device=d) for d in ("cuda", "cpu")]
@@ -1643,8 +1904,8 @@ def main():
     lam0 = 1e-3
     step_card = tba.lm_step(st_card, pr_card, torch.tensor(lam0, device=dev),
                             cg_iters=BA_CG_ITERS)
-    step_cpu = tba.lm_step(st_cpu, pr_cpu, torch.tensor(lam0),
-                           cg_iters=BA_CG_ITERS)
+    step_cpu = one_torch_thread(tba.lm_step, st_cpu, pr_cpu,
+                                torch.tensor(lam0), cg_iters=BA_CG_ITERS)
     c0 = [float(step_card[2]), float(step_cpu[2])]
     c1 = [float(step_card[3]), float(step_cpu[3])]
     if abs(c0[0] - c0[1]) > 1e-5 * abs(c0[1]) \
@@ -1666,7 +1927,7 @@ def main():
     torch.cuda.synchronize()
     ba_s = time.perf_counter() - t0
     out_card2 = lm_run(st_card, pr_card, BA_ITERS)
-    out_cpu = lm_run(st_cpu, pr_cpu, BA_ITERS)
+    out_cpu = one_torch_thread(lm_run, st_cpu, pr_cpu, BA_ITERS)
     rmse = [tba.reprojection_rmse(out_card, pr_card),
             tba.reprojection_rmse(out_cpu, pr_cpu)]
     rmse2 = tba.reprojection_rmse(out_card2, pr_card)
@@ -1763,7 +2024,7 @@ def main():
         return rec, stats
 
     rec_card, sfm_card = reconstruct("cuda")
-    rec_cpu, sfm_cpu = reconstruct("cpu")
+    rec_cpu, sfm_cpu = one_torch_thread(reconstruct, "cpu")
     if rec_card.view_ids != list(range(SFM_FRAMES)) \
             or rec_cpu.view_ids != rec_card.view_ids:
         fail(f"sfm: view_ids on the card {rec_card.view_ids}, on the CPU "
@@ -1776,6 +2037,7 @@ def main():
          launches=launches, detect_s=detect_s,
          view_ids_equal=True, card=sfm_card, cpu=sfm_cpu,
          jax_ate_reference=JAX_SFM_ATE, ate_limit=2 * JAX_SFM_ATE,
+         cpu_torch_threads=1,
          nvidia_smi=smi_line)
 
     emit("blur", octave0_ms=timing["blur"]["ms"],

@@ -43,6 +43,26 @@ def descriptor_dots(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
         return d1.to(torch.float32) @ d2.to(torch.float32).T
 
 
+def _best_two(mat, dim):
+    """(argmax, max, second best) of a float32 matrix along dim: the first
+    of equal maxima, and the maximum with that one position masked, so that
+    a tie makes the second equal the first. The mask is written into mat
+    and taken back out (no copy of the matrix)."""
+    bv, bi = mat.max(dim=dim)
+    idx = bi.unsqueeze(dim)
+    mat.scatter_(dim, idx, -np.inf)
+    nv = mat.amax(dim=dim)
+    mat.scatter_(dim, idx, bv.unsqueeze(dim))
+    return bi, bv, nv
+
+
+def _accept(bv, nv, distmax, ratiomax):
+    """The descriptor test of a best dot bv and its second best nv."""
+    dist = torch.arccos(torch.clamp(bv * INV_512_SQ, max=1.0))
+    distn = torch.arccos(torch.clamp(nv * INV_512_SQ, -1.0, 1.0))
+    return (dist < distmax) & (dist < distn * ratiomax)
+
+
 def _match_core(d1, d2, valid1, valid2, distmax, ratiomax, mutual_best=True,
                 gate=None):
     """d1 (N1, 128) u8, d2 (N2, 128) u8 tensors -> match index per row (or
@@ -56,24 +76,15 @@ def _match_core(d1, d2, valid1, valid2, distmax, ratiomax, mutual_best=True,
         vmask = vmask & gate
     dots = torch.where(vmask, dots, torch.full_like(dots, -1.0))
 
-    def best_two(mat, dim):
-        bv, bi = mat.max(dim=dim)          # the first of equal maxima
-        # second best: mask out the argmax position
-        nv = mat.scatter(dim, bi.unsqueeze(dim), -np.inf).amax(dim=dim)
-        return bi, bv, nv
-
-    def accept(bv, nv):
-        dist = torch.arccos(torch.clamp(bv * INV_512_SQ, max=1.0))
-        distn = torch.arccos(torch.clamp(nv * INV_512_SQ, -1.0, 1.0))
-        return (dist < distmax) & (dist < distn * ratiomax)
-
     none = torch.tensor(-1, dtype=torch.int64, device=dots.device)
-    ri, rv, rn = best_two(dots, 1)
-    row_match = torch.where(accept(rv, rn) & (rv > 0), ri, none)
+    ri, rv, rn = _best_two(dots, 1)
+    row_match = torch.where(_accept(rv, rn, distmax, ratiomax) & (rv > 0),
+                            ri, none)
 
     if mutual_best:
-        ci, cv, cn = best_two(dots, 0)
-        col_match = torch.where(accept(cv, cn) & (cv > 0), ci, none)
+        ci, cv, cn = _best_two(dots, 0)
+        col_match = torch.where(_accept(cv, cn, distmax, ratiomax)
+                                & (cv > 0), ci, none)
         rows = torch.arange(d1.shape[0], device=dots.device)
         mutual = col_match[row_match.clamp(0, d2.shape[0] - 1)] == rows
         row_match = torch.where((row_match >= 0) & mutual, row_match, none)

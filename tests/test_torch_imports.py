@@ -42,6 +42,10 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import hessgpu_tpu_torch.sfm.datasets\n"
         "import hessgpu_tpu_torch.sfm.evaluate\n"
         "import hessgpu_tpu_torch.sfm.synthetic\n"
+        "import hessgpu_tpu_torch.server_backend\n"
+        "import hessgpu_tpu_torch.server_build\n"
+        "import hessgpu_tpu_torch.parallel.client\n"
+        "import hessgpu_tpu_torch.parallel.distributed\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'hessgpu_tpu'"
         " or m.startswith('hessgpu_tpu.')]\n"
@@ -141,3 +145,16 @@ def test_sources_are_in_the_package():
     assert "-fmad=false" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert not any("fast_math" in f for f in build.NVCC_FLAGS)
+
+
+def test_the_server_source_imports_only_the_port():
+    """The port's hess_server embeds Python and imports the port's modules,
+    never the JAX package's."""
+    import re
+    from hessgpu_tpu_torch import server_build
+    src = server_build.SOURCE.read_text()
+    names = re.findall(r"(?:import|from)\s+([A-Za-z_][\w.]*)", src) \
+        + re.findall(r'PyImport_ImportModule\("([\w.]+)"\)', src)
+    ours = [n for n in names if n.startswith("hessgpu")]
+    assert ours and all(n.split(".")[0] == "hessgpu_tpu_torch" for n in ours)
+    assert "jax" not in names and "hessgpu_tpu.server_backend" not in src

@@ -169,3 +169,22 @@ def test_prune_outliers_matches_jax(problem, jax_runs):
     assert got_n == want_n and got_n > 0
     np.testing.assert_array_equal(got_prob.weight.numpy(),
                                   np.asarray(want_prob.weight))
+
+
+def test_segment_sum_at_one_thread_is_the_serial_sum():
+    """The CPU side of the ordered segment sums (ROADMAP Queue 3): at one
+    torch thread (this module's setting) index_put_(accumulate=True) adds
+    each row in observation order, exactly as numpy's unbuffered add.at in
+    float32, run after run. With several threads it adds from several
+    threads at once, in no fixed order, and two runs of one process part in
+    the last bits; so the CPU yardsticks (chip_smoke.py, these tests) run at
+    one thread."""
+    assert torch.get_num_threads() == 1
+    rng = np.random.RandomState(4)
+    v = rng.randn(8192, 6, 6).astype(np.float32)
+    idx = rng.randint(0, 37, 8192)
+    want = np.zeros((37, 6, 6), np.float32)
+    np.add.at(want, idx, v)
+    for _ in range(3):
+        got = tba.segment_sum(torch.from_numpy(v), torch.from_numpy(idx), 37)
+        np.testing.assert_array_equal(got.numpy(), want)

@@ -84,6 +84,22 @@ def test_the_port_reproduces_the_jax_run(seq5, jax_rec5):
     assert _ate(rec, Rs, ts) < 0.05
 
 
+def test_the_cpu_run_repeats_itself(seq5):
+    """ROADMAP Queue 3: the same features at the same thread count (one,
+    this module's setting) reconstruct bit for bit twice. At four threads
+    two runs of one process already part (the ordered segment sums of
+    sfm/ba.py add from several threads at once on the CPU; see
+    test_torch_sfm_ba.py::test_segment_sum_at_one_thread_is_the_serial_sum)."""
+    K, _, _, _, feats = seq5
+    a, b = (tinc.reconstruct_sequence(feats, K, ba_every=2, device="cpu")
+            for _ in range(2))
+    assert a.view_ids == b.view_ids and a.obs == b.obs
+    for f in ("R", "t"):
+        for x, y in zip(getattr(a, f), getattr(b, f)):
+            assert x.tobytes() == y.tobytes()
+    assert a.points.tobytes() == b.points.tobytes()
+
+
 def test_another_random_stream_registers_every_view(seq5):
     K, Rs, ts, _, feats = seq5
     with pytest.MonkeyPatch.context() as mp:
