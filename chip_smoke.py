@@ -87,6 +87,35 @@ there is no device, and on any failed phase. Phases, one JSON line each:
              itself): all 40 frames registered on both, the same view_ids,
              the card's ATE at most twice the JAX package's (JAX_SFM_ATE);
              seconds for detection, reconstruction, its BA and its SVDs
+  spatial    one 4032x6048 frame (make_texture's blobs at the 640x480
+             frames' density, seed SPATIAL_SEED) through
+             sharded_detect_and_describe on in-process meshes of 1, 2 and 4
+             row bands: launches pinned (EXPECTED_SPATIAL), the table equal
+             to the same path through the plain versions on the card
+             (keypoints bit for bit, descriptors within DESC_TOL) and to
+             one-device detect_and_describe where no shard's level cap is
+             full (reported per level); ms per frame beside the one-device
+             run's; device ms by kernel of the 4-band run (torch.profiler)
+  ba_mesh    bench_ba's problem through make_sharded_lm_step on in-process
+             meshes of 2 and 8 shards: one step's costs within 1e-5 / 1e-3
+             relative of lm_step's, LM iterations/s beside mesh=None's in
+             the same phase, the final RMSE within 1e-2 px of mesh=None's,
+             two card runs bit-equal, launches and device busy per step
+  batch_mesh the main path's batch (B=16, default config) over 2 shards in
+             process (launches pinned, bit-equal to detect_batch without a
+             mesh; ms in turns with mesh=None), and over a 2-rank gloo group
+             on this one card (gloo_rank: its collectives take the CUDA
+             tensors): detect_batch bit-equal to mesh=None, the 4032x6048
+             frame's 2-band table bit-equal to the in-process one,
+             bundle_adjust_sharded within 1e-4 relative of the in-process
+             2-shard run (all_reduce's order; 10 LM steps of 30 CG steps
+             carry the last bits); each rank's ms
+  sfm_mesh   the sfm phase's 40 frames reconstructed on the card with a
+             2-shard in-process mesh (every BA ends with the distributed LM
+             polish): all registered, ATE within the sfm phase's limit,
+             seconds
+  dryrun     dryrun_multichip(8) (hessgpu_tpu_torch/entry.py) on the card:
+             seconds, launches
   blur       the octave-0 blur's ms beside the card's name and power limit
   {"kernels": [...]}   one entry per kernel: launches on the main path,
              error, times, bound; path_ms and path_bound_ms sum a batch's
@@ -102,7 +131,8 @@ there is no device, and on any failed phase. Phases, one JSON line each:
              their time on an all-invalid table, orientation on large
              supports; octave_chain and detect_octave their ms at
              960x1280 (-fo -1); every kernel its launches on each path
-             (launches_by_path)
+             (launches_by_path, the mesh phases' paths too) and its device
+             ms in the 4-band spatial run (spatial_n4_device_ms)
   <name>, <power limit>
   {"ok": true, "device": {...}}
 """
@@ -172,7 +202,8 @@ DETAIL = ("fused_into", "octave_ms_without_decimation",
           "large_support_ms", "large_support_pixels",
           "octave_ms", "valid_cells", "bound_ms_dense_contract",
           "path_bound_ms_dense_contract", "octave0_warp_share_nms",
-          "octave0_warp_share_keypoint", "ms_960x1280", "launches_by_path")
+          "octave0_warp_share_keypoint", "ms_960x1280", "launches_by_path",
+          "spatial_n4_device_ms")
 # ba phase: bench_ba.py's problem (64 cameras, 4096 points, every camera
 # sees every 8th point: 32768 observations), built here in NumPy
 BA_CAMS, BA_PTS, BA_SEE_EVERY = 64, 4096, 8
@@ -187,6 +218,30 @@ SFM_FRAMES, SFM_SEED, SFM_THRESHOLD = 40, 7, 0.003
 JAX_SFM_ATE = 0.000959249298848135
 # match_tiled phase: bench_match.py's table (65536 x 65536, 16384 tiles)
 MT_N, MT_TILE = 65536, 16384
+# the multi-device phases. spatial: one 4032x6048 frame (an ETH3D DSLR
+# frame's size) of make_texture's blobs at the 640x480 frames' density,
+# row-sharded over in-process meshes of 1, 2 and 4 bands; batch_mesh: the
+# main path's batch over 2 shards, in process and over 2 gloo ranks on the
+# one card; ba_mesh: bench_ba's problem over 2 and 8 shards; sfm_mesh: the
+# sfm phase's sequence with a 2-shard mesh; dryrun: dryrun_multichip(8)
+SPATIAL_H, SPATIAL_W, SPATIAL_SEED, SPATIAL_BLOBS = 4032, 6048, 3, 80000
+SPATIAL_MESHES = (1, 2, 4)
+SPATIAL_REPS = 5
+BATCH_MESH, BATCH_MESH_REPS = 2, 10
+BA_MESHES = (2, 8)
+SFM_MESH = 2
+DRYRUN_SHARDS = 8
+# one 4032x6048 frame through the spatial path, 8 octaves: the initial blur
+# and 4 level blurs an octave, 7 decimations, a detect an octave, one
+# orientation and one descriptor launch over every level and band
+EXPECTED_SPATIAL = {"blur": 33, "octave_chain": 0, "downsample2": 7,
+                    "detect_octave": 8, "orientation": 1, "descriptor": 1}
+# the kernels' symbols in a profiler's trace
+KERNEL_SYMBOL = {"blur": "blur_kernel", "octave_chain": "chain_kernel",
+                 "downsample2": "downsample2_kernel",
+                 "detect_octave": "detect_kernel",
+                 "orientation": "orientation_kernel",
+                 "descriptor": "descriptor_kernel"}
 KERNEL_INFO = {
     "blur": ("hessgpu_tpu_torch/csrc/conv.cu",
              "hessgpu_tpu/ops/pallas/conv.py:381"),
@@ -274,6 +329,331 @@ def emit(phase, **fields):
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def gloo_rank(rank, world, url, frames, image, ba_np, out_dir):
+    """One rank of the batch_mesh phase's process group: two processes on
+    the one card in a gloo group whose collectives take the CUDA tensors
+    themselves (nccl refuses two ranks on one device). Runs detect_batch,
+    the row-sharded detect + describe and bundle_adjust_sharded over the
+    group and saves its results and times."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from hessgpu_tpu_torch import SiftConfig, detect_batch
+    from hessgpu_tpu_torch.convert import ba_from_numpy
+    from hessgpu_tpu_torch.parallel.distributed import device_mesh
+    from hessgpu_tpu_torch.parallel.spatial import sharded_detect_and_describe
+    from hessgpu_tpu_torch.sfm.distributed_ba import bundle_adjust_sharded
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=url, world_size=world,
+                            rank=rank)
+    try:
+        mesh = device_mesh("batch")
+        dev = torch.device("cuda", 0)
+        imgs = torch.from_numpy(frames).to(dev)
+        img = torch.from_numpy(image).to(dev)
+
+        def timed(fn, reps):
+            out, ms = fn(), []
+            for _ in range(reps):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return out, ms
+
+        table, batch_ms = timed(lambda: detect_batch(imgs, SiftConfig(),
+                                                     mesh=mesh),
+                                BATCH_MESH_REPS)
+        spatial, spatial_ms = timed(lambda: sharded_detect_and_describe(
+            img, SiftConfig(), mesh), SPATIAL_REPS)
+        st, pr = ba_from_numpy(device=dev, **ba_np)
+        out, cost = bundle_adjust_sharded(st, pr, mesh, iterations=BA_ITERS,
+                                          cg_iters=BA_CG_ITERS)
+        res = {f"batch_{k}": v.cpu().numpy()
+               for k, v in table._asdict().items()}
+        res.update({f"spatial_{k}": v.cpu().numpy()
+                    for k, v in spatial._asdict().items()})
+        res.update({f"ba_{k}": v.cpu().numpy()
+                    for k, v in out._asdict().items()})
+        np.savez(f"{out_dir}/rank{rank}.npz", ba_cost=cost,
+                 batch_ms=batch_ms, spatial_ms=spatial_ms, **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phases(dev, smi_line, same, max_abs, launches_by_path, frames,
+                ba_np, seq, sfm_card_ate):
+    """The multi-device phases: spatial, ba_mesh, batch_mesh (in process
+    and over two gloo ranks), sfm_mesh and dryrun. Returns each kernel's
+    device ms in one 4-band spatial run (the profiler's), by kernel."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from hessgpu_tpu_torch import (SiftConfig, detect_and_describe,
+                                   detect_batch)
+    from hessgpu_tpu_torch.convert import ba_from_numpy
+    from hessgpu_tpu_torch.entry import dryrun_multichip
+    from hessgpu_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from hessgpu_tpu_torch.parallel.distributed import local_mesh
+    from hessgpu_tpu_torch.parallel.spatial import sharded_detect_and_describe
+    from hessgpu_tpu_torch.sfm import ba as tba
+    from hessgpu_tpu_torch.sfm import distributed_ba as tdba
+    from hessgpu_tpu_torch.sfm import incremental as tinc
+    from hessgpu_tpu_torch.sfm.evaluate import ate_rmse, camera_centers
+    from hessgpu_tpu_torch.sfm.synthetic import make_texture
+    from hessgpu_tpu_torch.utils.timing import device_profile
+
+    def wall_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms
+
+    keypoint_fields = ("x", "y", "sigma", "theta", "response", "level",
+                       "ftype", "valid")
+
+    # ---- spatial: one 4032x6048 frame, row-sharded -------------------------
+    t0 = time.perf_counter()
+    image = make_texture(np.random.RandomState(SPATIAL_SEED), SPATIAL_W,
+                         SPATIAL_BLOBS)[:SPATIAL_H]
+    texture_s = time.perf_counter() - t0
+    img = torch.from_numpy(image).to(dev)
+    cfg = SiftConfig()
+    one, one_aux = detect_and_describe(image, cfg)
+    one_ms = wall_ms(lambda: detect_and_describe(image, cfg), SPATIAL_REPS)
+    spatial = {}
+    tables = {}
+    for n in SPATIAL_MESHES:
+        mesh = local_mesh(n)
+        reset_launch_counts()
+        got, aux = sharded_detect_and_describe(img, cfg, mesh, with_aux=True)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        if launches != EXPECTED_SPATIAL:
+            fail(f"spatial n={n}: launches {launches} != {EXPECTED_SPATIAL}")
+        if n > 1:
+            launches_by_path[f"spatial_{SPATIAL_H}x{SPATIAL_W}_n{n}"] = \
+                launches
+        plain = sharded_detect_and_describe(img, cfg, mesh, plain=True)
+        for f in keypoint_fields:
+            if not same(getattr(got, f), getattr(plain, f)):
+                fail(f"spatial n={n}: {f} differs from the plain route")
+        desc_err = max_abs(got.desc, plain.desc)
+        if desc_err > DESC_TOL:
+            fail(f"spatial n={n}: descriptors {desc_err} from the plain route")
+        full = (aux["shard_level_counts"] >= aux["level_cap"]).any(0)
+        if not bool(full.any()):
+            for f in got._fields:
+                if not same(getattr(got, f), getattr(one, f)):
+                    fail(f"spatial n={n}: {f} differs from one-device "
+                         "detect_and_describe with no level cap full")
+        tables[n] = got
+        spatial[f"n{n}"] = dict(
+            ms=wall_ms(lambda: sharded_detect_and_describe(img, cfg, mesh),
+                       SPATIAL_REPS),
+            plain_ms=wall_ms(lambda: sharded_detect_and_describe(
+                img, cfg, mesh, plain=True), 2),
+            launches=launches, features=int(got.count()),
+            level_cap=aux["level_cap"],
+            levels_with_a_full_shard=[int(i) for i in
+                                      torch.nonzero(full)[:, 0].tolist()],
+            equals_one_device=not bool(full.any()),
+            sharded_octaves=aux["sharded_octaves"],
+            plain_desc_max_abs_err=desc_err)
+    prof = device_profile(lambda: sharded_detect_and_describe(
+        img, cfg, local_mesh(4)), runs=3)
+    kernel_ms = {k: sum(v[0] for name, v in prof["by_kernel"].items()
+                        if sym in name)
+                 for k, sym in KERNEL_SYMBOL.items()}
+    for n in SPATIAL_MESHES:
+        spatial[f"n{n}"]["ms_median"] = statistics.median(
+            spatial[f"n{n}"]["ms"])
+    emit("spatial", height=SPATIAL_H, width=SPATIAL_W, seed=SPATIAL_SEED,
+         blobs=SPATIAL_BLOBS, texture_s=texture_s,
+         one_device_ms=one_ms, one_device_ms_median=statistics.median(
+             one_ms), one_device_features=int(one.count()),
+         one_device_level_counts=one_aux["level_counts"].tolist(),
+         meshes=spatial, n4_device_busy_ms=prof["busy_ms"],
+         n4_launches_all=prof["launches"], n4_kernel_ms=kernel_ms,
+         n4_top_device_work=dict(list(prof["by_kernel"].items())[:10]),
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         nvidia_smi=smi_line)
+    del one, plain, img
+
+    # ---- ba_mesh: bench_ba's problem over 2 and 8 shards -------------------
+    st, pr = ba_from_numpy(device=dev, **ba_np)
+    lam0 = torch.tensor(1e-3, device=dev)
+
+    def lm_run(step, iters):
+        s, lam = st, lam0
+        for _ in range(iters):
+            s, lam = step(s, lam)[:2]
+        return s
+
+    local = lambda s, lam: tba.lm_step(s, pr, lam, cg_iters=BA_CG_ITERS)
+    ref_step = local(st, lam0)
+    rates, ba_mesh = {}, {}
+    ref = None
+    for n in (1,) + BA_MESHES:
+        if n == 1:
+            step = local
+        else:
+            prob_n = tdba.pad_problem(pr, n)
+            sharded = tdba.make_sharded_lm_step(local_mesh(n),
+                                                cg_iters=BA_CG_ITERS)
+            step = (lambda f, p: lambda s, lam: f(s, lam, p))(sharded,
+                                                             prob_n)
+        lm_run(step, BA_WARMUP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = lm_run(step, BA_ITERS)
+        torch.cuda.synchronize()
+        rates[n] = BA_ITERS / (time.perf_counter() - t0)
+        if n == 1:
+            ref = out
+            continue
+        again = lm_run(step, BA_ITERS)
+        for f in ("R", "t", "X"):
+            if not same(getattr(out, f), getattr(again, f)):
+                fail(f"ba_mesh n={n}: two card runs differ in {f}")
+        one_step = step(st, lam0)
+        c0 = [float(one_step[2]), float(ref_step[2])]
+        c1 = [float(one_step[3]), float(ref_step[3])]
+        if abs(c0[0] - c0[1]) > 1e-5 * abs(c0[1]) \
+                or abs(c1[0] - c1[1]) > 1e-3 * abs(c1[1]):
+            fail(f"ba_mesh n={n}: step {c0[0]} -> {c1[0]}, mesh=None "
+                 f"{c0[1]} -> {c1[1]}")
+        rmse = [tba.reprojection_rmse(out, pr), tba.reprojection_rmse(ref, pr)]
+        if abs(rmse[0] - rmse[1]) > 1e-2:
+            fail(f"ba_mesh n={n}: RMSE {rmse[0]} px, mesh=None {rmse[1]}")
+        p = device_profile(lambda: step(st, lam0), runs=3)
+        ba_mesh[f"n{n}"] = dict(
+            lm_iters_per_s=rates[n], step_cost0_mesh_none=c0,
+            step_cost1_mesh_none=c1, final_rmse_px_mesh_none=rmse,
+            two_runs_bit_equal=True, launches_per_lm_iter=p["launches"],
+            device_busy_ms_per_lm_iter=p["busy_ms"],
+            vs_mesh_none_max_abs_diff={
+                f: max_abs(getattr(out, f), getattr(ref, f))
+                for f in ("R", "t", "X")})
+    emit("ba_mesh", cameras=BA_CAMS, points=BA_PTS,
+         observations=int(pr.uv.shape[0]), cg_iters=BA_CG_ITERS,
+         timed_iters=BA_ITERS, mesh_none_lm_iters_per_s=rates[1],
+         meshes=ba_mesh, nvidia_smi=smi_line)
+
+    # ---- batch_mesh: the main path's batch over 2 shards -------------------
+    cfg = SiftConfig()
+    imgs = torch.from_numpy(frames).to(dev)
+    mesh = local_mesh(BATCH_MESH)
+    want = detect_batch(imgs, cfg)
+    reset_launch_counts()
+    got = detect_batch(imgs, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want_launches = {k: BATCH_MESH * v
+                     for k, v in EXPECTED_LAUNCHES_DEFAULT.items()}
+    if launches != want_launches:
+        fail(f"batch_mesh: launches {launches} != {want_launches}")
+    launches_by_path[f"batch_mesh_n{BATCH_MESH}"] = launches
+    for f in got._fields:
+        if not same(getattr(got, f), getattr(want, f)):
+            fail(f"batch_mesh: {f} differs from detect_batch without a mesh")
+    none_ms, mesh_ms = [], []
+    for _ in range(2):              # in turns: none, mesh, mesh, none
+        none_ms += wall_ms(lambda: detect_batch(imgs, cfg),
+                           BATCH_MESH_REPS // 2)
+        mesh_ms += wall_ms(lambda: detect_batch(imgs, cfg, mesh=mesh),
+                           BATCH_MESH_REPS)
+        none_ms += wall_ms(lambda: detect_batch(imgs, cfg),
+                           BATCH_MESH_REPS // 2)
+    # the process-group route: two gloo ranks on this card
+    ba_ref, ba_ref_cost = tdba.bundle_adjust_sharded(
+        st, pr, local_mesh(2), iterations=BA_ITERS, cg_iters=BA_CG_ITERS)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    try:
+        t0 = time.perf_counter()
+        mp.start_processes(gloo_rank, args=(
+            2, f"file://{workdir}/rendezvous", frames, image, ba_np, workdir),
+            nprocs=2, join=True, start_method="spawn")
+        gloo_s = time.perf_counter() - t0
+        ranks = [dict(np.load(f"{workdir}/rank{r}.npz")) for r in range(2)]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    gloo = {"seconds_with_spawn": gloo_s}
+    for r, res in enumerate(ranks):
+        for f in got._fields:
+            if not np.array_equal(res[f"batch_{f}"],
+                                  getattr(want, f).cpu().numpy()):
+                fail(f"batch_mesh: gloo rank {r}: {f} differs from "
+                     "detect_batch without a mesh")
+            if not np.array_equal(res[f"spatial_{f}"],
+                                  getattr(tables[2], f).cpu().numpy()):
+                fail(f"batch_mesh: gloo rank {r}: spatial {f} differs from "
+                     "the in-process 2-band run")
+        ba_rel = max(float(np.abs(res[f"ba_{f}"] - getattr(ba_ref, f)
+                                  .cpu().numpy()).max()
+                           / max(1e-30, float(getattr(ba_ref, f).abs()
+                                              .max())))
+                     for f in ("R", "t", "X"))
+        if ba_rel > 1e-4:
+            fail(f"batch_mesh: gloo rank {r}: BA state {ba_rel} relative "
+                 "from the in-process 2-shard run")
+        gloo[f"rank{r}"] = dict(
+            batch_ms=res["batch_ms"].tolist(),
+            spatial_ms=res["spatial_ms"].tolist(),
+            ba_cost=float(res["ba_cost"]), ba_max_rel_diff=ba_rel)
+    emit("batch_mesh", batch=int(frames.shape[0]), height=HEIGHT,
+         width=WIDTH, shards=BATCH_MESH, launches=launches,
+         bit_equal_to_mesh_none=True, mesh_none_ms=none_ms,
+         mesh_none_ms_median=statistics.median(none_ms), mesh_ms=mesh_ms,
+         mesh_ms_median=statistics.median(mesh_ms),
+         gloo_two_ranks_one_card=gloo, gloo_collectives_on_cuda_tensors=True,
+         gloo_batch_bit_equal=True, gloo_spatial_bit_equal=True,
+         in_process_ba_cost=ba_ref_cost, nvidia_smi=smi_line)
+
+    # ---- sfm_mesh: the sequence with a 2-shard mesh ------------------------
+    seq_feats, seq_K, seq_centers = seq
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = tinc.reconstruct_sequence(seq_feats, seq_K,
+                                    mesh=local_mesh(SFM_MESH), device="cuda")
+    torch.cuda.synchronize()
+    sfm_s = time.perf_counter() - t0
+    if rec is None or rec.view_ids != list(range(len(seq_feats))):
+        fail(f"sfm_mesh: registered {None if rec is None else rec.view_ids}")
+    ate = ate_rmse(camera_centers(rec.R, rec.t), seq_centers[rec.view_ids])
+    if not ate <= 2 * JAX_SFM_ATE:
+        fail(f"sfm_mesh: ATE {ate}, limit {2 * JAX_SFM_ATE}")
+    emit("sfm_mesh", frames=len(seq_feats), shards=SFM_MESH, seconds=sfm_s,
+         registered=rec.num_cameras, points=rec.num_points, ate=ate,
+         ate_limit=2 * JAX_SFM_ATE, mesh_none_ate=sfm_card_ate,
+         nvidia_smi=smi_line)
+
+    # ---- dryrun: dryrun_multichip on an 8-shard in-process mesh ------------
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = dryrun_multichip(DRYRUN_SHARDS)
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t0
+    launches = launch_counts()
+    if min(launches[k] for k in ("blur", "octave_chain", "detect_octave",
+                                 "orientation", "descriptor")) < 1:
+        fail(f"dryrun: launches {launches}")
+    launches_by_path[f"dryrun_{DRYRUN_SHARDS}"] = launches
+    emit("dryrun", shards=DRYRUN_SHARDS, seconds=dry_s, launches=launches,
+         **result, nvidia_smi=smi_line)
+    return kernel_ms
 
 
 def main():
@@ -974,7 +1354,7 @@ def main():
                     for k, v in timing.items()},
          reps=REPS, l2_flushed=True, busy_cycles=BUSY_CYCLES)
 
-    # ---- compaction: the per-row candidate cap on the card -------------------
+    # ---- compaction: the per-row candidate cap on the card ------------------
     def check_row_cap():
         """compact_octave_keypoints of a flooded (16, 3, 480, 640) octave on
         the card against the same on the CPU: key level 0 has rows of 214
@@ -1106,7 +1486,7 @@ def main():
     emit("main_path", config="-sd -ofix", detector="dog", batch=BATCH,
          launches=launches_d, keypoints=counts_d, equals_plain=True)
 
-    # ---- main path, default configuration ------------------------------------
+    # ---- main path, default configuration -----------------------------------
     quantum = 2.0 * np.pi / 255.0
 
     def circ(a, b):
@@ -1216,7 +1596,7 @@ def main():
     emit("main_path", config="default", detector="dog", batch=BATCH,
          **report_d)
 
-    # ---- keypoint re-entry ---------------------------------------------------
+    # ---- keypoint re-entry --------------------------------------------------
     # describe_keypoints on the card, fed frame 0's own keypoints. It bins a
     # keypoint to a level by its scale, which is not always the level it was
     # detected on (the subpixel step moves sigma); where it is, (a) without
@@ -1603,7 +1983,7 @@ def main():
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    # ---- matcher --------------------------------------------------------------
+    # ---- matcher ------------------------------------------------------------
     H10 = rotation_homography(10, HEIGHT, WIDTH)
     warped = warp_image(frames[0], H10)
     fa = HessianSift().run(frames[0])
@@ -2040,6 +2420,10 @@ def main():
          cpu_torch_threads=1,
          nvidia_smi=smi_line)
 
+    spatial_kernel_ms = mesh_phases(
+        dev, smi_line, same, max_abs, launches_by_path, frames, ba_np,
+        (seq_feats, seq_K, seq_centers), sfm_card["ate"])
+
     emit("blur", octave0_ms=timing["blur"]["ms"],
          path_ms_by_detector=timing["blur"]["path_ms_by_detector"],
          nvidia_smi=smi_line)
@@ -2050,6 +2434,7 @@ def main():
         t = timing[name]
         t["launches_by_path"] = {path: n[name]
                                  for path, n in launches_by_path.items()}
+        t["spatial_n4_device_ms"] = spatial_kernel_ms[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches_def[name],

@@ -5,16 +5,19 @@ Hopper under csrc/, built at first launch (never at import). The package
 imports torch and numpy only (and Pillow, when an image that is not
 PGM/PPM is read or a view is written).
 
-Ported so far: batched detect + describe end to end for every SiftConfig
+Ported: batched detect + describe end to end for every SiftConfig
 (Gaussian pyramid by the incremental chain or by direct blurs, the
 upsampled first octave, fused detector, orientation histograms with up to 4
 orientations per keypoint, 128-d or half-SIFT descriptors), both detector
 personalities, through six kernels; the keypoint re-entry service
 (describe_keypoints, describe_rectangles); the HessianSift and SiftMatcher
 facades, the .sift formats, the hess CLI (python -m
-hessgpu_tpu_torch.cli.hess), the repeatability evaluation, and the SfM
-stack on one device (hessgpu_tpu_torch.sfm: two-view geometry, bundle
-adjustment, pose graph, incremental reconstruction):
+hessgpu_tpu_torch.cli.hess), the repeatability evaluation, the SfM stack
+(hessgpu_tpu_torch.sfm: two-view geometry, bundle adjustment, pose graph,
+incremental reconstruction), the feature server, and the multi-device
+layer (hessgpu_tpu_torch.parallel: batch sharding, map-scale matching,
+row-sharded detect + describe, the distributed bundle adjustment; a mesh of
+n shards in one process on one device, or a torch.distributed group):
 
     from hessgpu_tpu_torch import HessianSift, SiftMatcher, SiftConfig
     sift = HessianSift(SiftConfig())       # device="cpu" to ask for the CPU

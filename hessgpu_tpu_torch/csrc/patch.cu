@@ -11,6 +11,10 @@
 // pixel counts by the same tests in absolute level coordinates as in the
 // plain PyTorch versions (ops/orientation.py, ops/descriptor.py), so the set
 // of contributing pixels is the same. Slots that are not valid get zeros.
+// A level's buffer may also be a band of rows of a taller level (the
+// row-sharded path): the table gives each level its global height and the
+// global row of its buffer's row 0, and keypoints, tests and the clamp stay
+// in global rows.
 //
 // What bounds them on this card: by the roofline, bytes (a keypoint's support
 // is 10^2..10^4 pixels of two maps, a few MB for a whole batch, microseconds
@@ -69,12 +73,19 @@ namespace {
 
 constexpr int kMaxLevels = 64;
 
+// A level's buffer may be a band of rows of a taller level (the row-sharded
+// path): h is the level's global height, which the [1, h - 2] clamp uses,
+// and global row iy of batch item b lies at buffer row
+// iy - (row0 + b * row_step). On the main path row0 = row_step = 0 and the
+// buffer is the whole level.
 struct LevelTable {
     const float* grad[kMaxLevels];    // batch item 0's plane of each level
     const float* rot[kMaxLevels];
     long long bstride[kMaxLevels];    // elements from one batch item to the next
     int h[kMaxLevels];
     int w[kMaxLevels];
+    int row0[kMaxLevels];             // global row of buffer row 0, item 0
+    int row_step[kMaxLevels];         // its step from one batch item to the next
     int NL;
 };
 
@@ -171,9 +182,9 @@ orientation_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
 
             const float kx = xs[slot], ky = ys[slot], sg = sigmas[slot];
             const int H = T.h[level], W = T.w[level];
-            const long long plane = (long long)(slot / P.G) * T.bstride[level];
-            const float* __restrict__ g = T.grad[level] + plane;
-            const float* __restrict__ r = T.rot[level] + plane;
+            const int item = slot / P.G;
+            const long long plane = (long long)item * T.bstride[level];
+            const int row0 = T.row0[level] + item * T.row_step[level];
 
             const float gsigma = sg * P.gaussian_factor;
             const float win = fabsf(sg) * P.window;
@@ -188,6 +199,11 @@ orientation_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
             const int iy1 = (int)fminf((float)H - 2.0f, floorf(ky + win));
             const int nx = ix1 - ix0 + 1, ny = iy1 - iy0 + 1;
             const int npx = (nx > 0 && ny > 0) ? nx * ny : 0;
+            // the maps from the box's first row on: global row iy0 lies at
+            // buffer row iy0 - row0, and box row `row` at g[row * W]
+            const long long first = plane + (long long)(iy0 - row0) * W;
+            const float* __restrict__ g = T.grad[level] + first;
+            const float* __restrict__ r = T.rot[level] + first;
 
             __syncwarp();   // the last slot's reads of hist and sv are done
 #pragma unroll
@@ -218,7 +234,7 @@ orientation_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
                             sq[u] = dx * dx + dy * dy;
                             in[u] = sq[u] < dist_threshold;
                             if (in[u]) {
-                                const int o = iy * W + ix;
+                                const int o = row * W + ix;
                                 gv[u] = g[o];
                                 rv[u] = r[o];
                             }
@@ -450,9 +466,9 @@ descriptor_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
 
         const float kx = xs[slot], ky = ys[slot], th = thetas[slot];
         const int H = T.h[lid], W = T.w[lid];
-        const long long plane = (long long)(slot / P.G) * T.bstride[lid];
-        const float* __restrict__ gm = T.grad[lid] + plane;
-        const float* __restrict__ rm = T.rot[lid] + plane;
+        const int item = slot / P.G;
+        const long long plane = (long long)item * T.bstride[lid];
+        const int row0 = T.row0[lid] + item * T.row_step[lid];
 
         const float spt = fabsf(sigmas[slot] * P.window_factor);
         const float c = cosf(th), s = sinf(th);
@@ -470,6 +486,10 @@ descriptor_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
         const int iy1 = (int)fminf((float)H - 2.0f, ceilf(ky + R));
         const int nx = ix1 - ix0 + 1, ny = iy1 - iy0 + 1;
         const int npx = (nx > 0 && ny > 0) ? nx * ny : 0;
+        // the maps from the box's first row on (buffer row iy0 - row0)
+        const long long first = plane + (long long)(iy0 - row0) * W;
+        const float* __restrict__ gm = T.grad[lid] + first;
+        const float* __restrict__ rm = T.rot[lid] + first;
 
         // Round t of the bounding box is its pixels 32 t .. 32 t + 31 in
         // raster order; warp w takes the rounds t = w, w + 4, ... A round's
@@ -492,8 +512,9 @@ descriptor_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
                 const float cu = u + 1.5f, cv = v + 1.5f;
                 member = cu > -1.0f && cu < 4.0f && cv > -1.0f && cv < 4.0f;
                 if (member) {
-                    rot = rm[iy * W + ix];
-                    grad = gm[iy * W + ix];
+                    const int o = row * W + ix;
+                    rot = rm[o];
+                    grad = gm[o];
                 }
             }
             col += kDescWarps * 32;
@@ -551,7 +572,8 @@ descriptor_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
 
 bool fill_levels(LevelTable& T, const long long* grad_ptrs,
                  const long long* rot_ptrs, const long long* bstride,
-                 const int* lh, const int* lw, int NL) {
+                 const int* lh, const int* lw, const int* row0,
+                 const int* row_step, int NL) {
     if (NL < 1 || NL > kMaxLevels) return false;
     T.NL = NL;
     for (int i = 0; i < NL; ++i) {
@@ -561,6 +583,8 @@ bool fill_levels(LevelTable& T, const long long* grad_ptrs,
         T.bstride[i] = bstride[i];
         T.h[i] = lh[i];
         T.w[i] = lw[i];
+        T.row0[i] = row0[i];
+        T.row_step[i] = row_step[i];
     }
     return true;
 }
@@ -571,20 +595,23 @@ extern "C" {
 
 // Tables: n = B * G slots, slot i of batch item i / G. valid: bytes 0/1.
 // Levels: NL host entries each - device addresses of batch item 0's grad and
-// rot plane, elements to the next batch item, height, width.
+// rot plane, elements to the next batch item, global height, width, the
+// global row of item 0's buffer row 0 and its step per item (LevelTable).
 // thetas (n, 4) f32, ovalid (n, 4) bytes, votes (n, 36) f32 or null.
 int hg_orientation(const float* x, const float* y, const float* sigma,
                    const unsigned char* valid, const int* level_id,
                    float* thetas, unsigned char* ovalid, float* votes,
                    int n, int G, const long long* grad_ptrs,
                    const long long* rot_ptrs, const long long* bstride,
-                   const int* lh, const int* lw, int NL,
-                   float gaussian_factor, float window, float bins_per_radian,
-                   float peak_threshold, float theta_quantum, int half_sift,
-                   int single, int max_peaks, void* stream) {
+                   const int* lh, const int* lw, const int* row0,
+                   const int* row_step, int NL, float gaussian_factor,
+                   float window, float bins_per_radian, float peak_threshold,
+                   float theta_quantum, int half_sift, int single,
+                   int max_peaks, void* stream) {
     LevelTable T;
     if (n < 1 || G < 1 || n % G != 0
-            || !fill_levels(T, grad_ptrs, rot_ptrs, bstride, lh, lw, NL))
+            || !fill_levels(T, grad_ptrs, rot_ptrs, bstride, lh, lw, row0,
+                            row_step, NL))
         return (int)cudaErrorInvalidValue;
     OriParams P;
     P.n = n; P.G = G;
@@ -612,11 +639,13 @@ int hg_descriptor(const float* x, const float* y, const float* sigma,
                   const int* level_id, float* out, int n, int G,
                   const long long* grad_ptrs, const long long* rot_ptrs,
                   const long long* bstride, const int* lh, const int* lw,
-                  int NL, float window_factor, float pi, float two_pi,
+                  const int* row0, const int* row_step, int NL,
+                  float window_factor, float pi, float two_pi,
                   float four_over_pi, void* stream) {
     LevelTable T;
     if (n < 1 || G < 1 || n % G != 0
-            || !fill_levels(T, grad_ptrs, rot_ptrs, bstride, lh, lw, NL))
+            || !fill_levels(T, grad_ptrs, rot_ptrs, bstride, lh, lw, row0,
+                            row_step, NL))
         return (int)cudaErrorInvalidValue;
     DescParams P;
     P.n = n; P.G = G;

@@ -105,7 +105,7 @@ def compact_sorted(valid: torch.Tensor, values: Sequence[torch.Tensor],
 
 
 def compact_octave_keypoints(maps, sigmas, sigma_step: float,
-                             capacity: int) -> FeatureList:
+                             capacity: int, row_offset=None) -> FeatureList:
     """Dense KeypointMaps for all key levels of one octave ((..., NK, H, W)
     leaves, leading batch dims allowed) -> one blocked FeatureList with
     (..., NK, capacity) leaves (row k = key level k).
@@ -121,7 +121,10 @@ def compact_octave_keypoints(maps, sigmas, sigma_step: float,
     level_sigma * sigma_step**ds. sigmas: the NK level sigmas, as floats or
     as one f32 tensor on the maps' device (saves a host-to-device copy per
     call). Only valid cells of response, dx, dy, ds and ftype reach the
-    result: the detect kernel leaves the others undefined.
+    result: the detect kernel leaves the others undefined. row_offset: an
+    int64 tensor broadcast against the (..., NK, capacity) slots, added to
+    each row before y is formed - the global row of a band's row 0, so
+    that y is the one-device value exactly.
     """
     h, w = maps.valid.shape[-2:]
     flat = lambda a: a.reshape(a.shape[:-2] + (h * w,))
@@ -137,7 +140,7 @@ def compact_octave_keypoints(maps, sigmas, sigma_step: float,
     dx, dy, ds = take(maps.dx), take(maps.dy), take(maps.ds)
     row = torch.div(src, w, rounding_mode="floor")
     x = ((src - row * w) + 0.5) + dx          # int + 0.5 is exact in f32
-    y = (row + 0.5) + dy
+    y = ((row if row_offset is None else row + row_offset) + 0.5) + dy
     if not isinstance(sigmas, torch.Tensor):
         sigmas = torch.tensor([float(s) for s in sigmas], dtype=torch.float32,
                               device=dx.device)

@@ -9,9 +9,10 @@ build or launch.
 
 Both take (B, G) keypoint tables in level coordinates and the LevelMaps of
 the pyramid (ops/gather.py); level_id indexes the maps' levels, slot (b, i)
-reads batch item b. `wsize` is the static window the plain version gathers;
-the kernels size their loop per keypoint and do not use it. Slots that are
-not valid give zeros on both routes.
+reads batch item b. A level may be a band of rows read in global rows
+through its row origin (ops/gather.py). `wsize` is the static window the
+plain version gathers; the kernels size their loop per keypoint and do not
+use it. Slots that are not valid give zeros on both routes.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from . import build
 MAX_LEVELS = 64   # kMaxLevels in csrc/patch.cu
 
 _ptr = ctypes.c_void_p
-_LEVELS = [_ptr] * 5 + [ctypes.c_int]
+_LEVELS = [_ptr] * 7 + [ctypes.c_int]
 _ORI_ARGTYPES = ([_ptr] * 8 + [ctypes.c_int] * 2 + _LEVELS
                  + [ctypes.c_float] * 5 + [ctypes.c_int] * 3 + [_ptr])
 _DESC_ARGTYPES = ([_ptr] * 7 + [ctypes.c_int] * 2 + _LEVELS
@@ -40,7 +41,9 @@ _DESC_ARGTYPES = ([_ptr] * 7 + [ctypes.c_int] * 2 + _LEVELS
 
 
 def _level_args(maps: LevelMaps):
-    """Host arrays of the kernels' level table (kept alive by the caller)."""
+    """Host arrays of the kernels' level table (kept alive by the caller):
+    per level, batch item 0's grad and rot plane, the batch stride, the
+    global height, the width, the row origin and its step per batch item."""
     geo = maps.geometry()
     if len(geo) > MAX_LEVELS:
         raise ValueError(f"{len(geo)} levels exceed the kernels' "
@@ -48,15 +51,15 @@ def _level_args(maps: LevelMaps):
     for g, r in zip(maps.grad, maps.rot):
         if not (g.is_contiguous() and r.is_contiguous()):
             raise ValueError("LevelMaps: maps must be contiguous")
-    plane = lambda ts, gi, k, h, w: ts[gi].data_ptr() + 4 * k * h * w
+    plane = lambda ts, g: ts[g.group].data_ptr() + 4 * g.index * g.rows * g.w
     arrays = (
-        np.asarray([plane(maps.grad, gi, k, h, w)
-                    for gi, k, h, w, _, _ in geo], np.int64),
-        np.asarray([plane(maps.rot, gi, k, h, w)
-                    for gi, k, h, w, _, _ in geo], np.int64),
-        np.asarray([g[5] for g in geo], np.int64),
-        np.asarray([g[2] for g in geo], np.int32),
-        np.asarray([g[3] for g in geo], np.int32))
+        np.asarray([plane(maps.grad, g) for g in geo], np.int64),
+        np.asarray([plane(maps.rot, g) for g in geo], np.int64),
+        np.asarray([g.bstride for g in geo], np.int64),
+        np.asarray([g.height for g in geo], np.int32),
+        np.asarray([g.w for g in geo], np.int32),
+        np.asarray([g.row0 for g in geo], np.int32),
+        np.asarray([g.row_step for g in geo], np.int32))
     return arrays, [a.ctypes.data for a in arrays] + [len(geo)]
 
 

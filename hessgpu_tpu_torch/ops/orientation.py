@@ -150,18 +150,22 @@ def peaks_from_votes(votes: torch.Tensor, single: bool = False,
 def gather_levels(tables, level_id, flat, wsize: int, sel):
     """For the selected flat slots `sel` (int64 (K,)) of (B, G) tables (x, y
     first): the table values (K,) each, the two (K, ws, ws) windows around
-    (y, x), their origins as floats and the level sizes as floats. flat:
-    LevelMaps.flat() of the maps that level_id indexes."""
+    (y, x), their origins as floats and the level sizes as floats (the
+    global height of a band). flat: LevelMaps.flat() of the maps that
+    level_id indexes."""
     G = level_id.shape[-1]
-    flat_grad, flat_rot, lbase, lbstride, lh, lw = flat
+    flat_grad, flat_rot, (lbase, lbstride, lh, lw, lrow0, lstep, lrows) = flat
     vals = [t.reshape(-1)[sel] for t in tables]
     lid = level_id.reshape(-1)[sel].to(torch.int64)
     b = torch.div(sel, G, rounding_mode="floor")
     base = lbase[lid] + b * lbstride[lid]
     h, w = lh[lid], lw[lid]
+    row0 = lrow0[lid] + b * lstep[lid]
+    rows = lrows[lid]
     gwin, y0, x0 = window_gather(flat_grad, base, h, w, vals[1], vals[0],
-                                 wsize)
-    rwin, _, _ = window_gather(flat_rot, base, h, w, vals[1], vals[0], wsize)
+                                 wsize, row0, rows)
+    rwin, _, _ = window_gather(flat_rot, base, h, w, vals[1], vals[0], wsize,
+                               row0, rows)
     f = torch.float32
     return vals, gwin, rwin, x0.to(f), y0.to(f), w.to(f), h.to(f)
 

@@ -1,13 +1,16 @@
-"""Batched detect + describe (counterpart of hessgpu_tpu/parallel/batch.py).
+"""Batched + multi-device detection (counterpart of
+hessgpu_tpu/parallel/batch.py).
 
-One device: the whole batch rides the kernels' batch dimension. Sharding a
-batch over several GPUs (the JAX package's mesh= argument) is not ported
-yet.
+One device: the whole batch rides the kernels' batch dimension. A mesh
+(parallel/distributed.py) splits the batch into contiguous blocks, one per
+shard, each run through the same pipeline - the counterpart of the JAX
+package's shard_map over a device mesh, and of the reference's one process
+per GPU. Shapes are bucketed: images of one (H, W) bucket batch together.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -15,10 +18,13 @@ import torch
 from ..config import SiftConfig
 from ..features import FeatureTable
 from ..pyramid import make_plan, resolve_device, run_pipeline_batched
+from .distributed import (DeviceMesh, all_gather, device_mesh, local_mesh,
+                          mesh_shards)
 
 
 def detect_batch(images, cfg: Optional[SiftConfig] = None,
-                 device="cuda", plain: bool = False) -> FeatureTable:
+                 mesh: Optional[DeviceMesh] = None, device="cuda",
+                 plain: bool = False) -> FeatureTable:
     """Detect and describe keypoints in a batch of same-sized grayscale
     images.
 
@@ -26,6 +32,11 @@ def detect_batch(images, cfg: Optional[SiftConfig] = None,
     `device` if it lies elsewhere), taken as octave 0's input as given: for
     first_octave != 0 the caller resamples (ops.resize.upsample, or a
     strided slice), as with the JAX package's detect_batch.
+    mesh: optional one-axis mesh. Shard s runs frames [s * B / n,
+    (s + 1) * B / n) through the pipeline (B must be divisible by the mesh
+    size; every rank of a group passes the whole batch), and every rank gets
+    the full batched table back in batch order (all_gather). mesh=None runs
+    the whole batch as one.
     device="cuda" without a card raises.
     plain=True runs the kernels' plain PyTorch versions instead (a check,
     not a fallback).
@@ -41,6 +52,54 @@ def detect_batch(images, cfg: Optional[SiftConfig] = None,
     if arr.ndim != 3:
         raise ValueError(f"detect_batch: expected (B, H, W), got "
                          f"{tuple(arr.shape)}")
-    _, h, w = arr.shape
+    b, h, w = arr.shape
     plan = make_plan(h, w, cfg)
-    return run_pipeline_batched(arr, plan, cfg, plain)[0]
+    if mesh is None:
+        return run_pipeline_batched(arr, plan, cfg, plain)[0]
+    if b % mesh.size:
+        raise ValueError(f"detect_batch: batch {b} is not divisible by the "
+                         f"mesh's {mesh.size} shards")
+    bl = b // mesh.size
+    parts = [run_pipeline_batched(arr[s * bl:(s + 1) * bl], plan, cfg,
+                                  plain)[0] for s in mesh_shards(mesh)]
+    return FeatureTable(*(
+        all_gather(torch.stack(leaves), mesh).flatten(0, 1)
+        for leaves in zip(*parts)))
+
+
+def data_parallel_mesh(n_devices: Optional[int] = None) -> DeviceMesh:
+    """One-axis 'batch' mesh over the initialized process group's first
+    n_devices ranks (parallel.distributed.device_mesh); local_mesh(n) is the
+    in-process mesh of n shards on one device."""
+    return device_mesh("batch", n_devices)
+
+
+def bucket_images(images: List[np.ndarray], buckets: List[tuple]) -> dict:
+    """Group images into static (H, W) buckets (padding up).
+
+    Each image is zero-padded to the smallest bucket that fits it (or kept
+    at its own size when none does), so images of a bucket batch together.
+    Returns {bucket: (stacked array, list of original indices, list of
+    original shapes)}.
+    """
+    out = {}
+    for idx, img in enumerate(images):
+        h, w = img.shape[:2]
+        fit = None
+        for bh, bw in sorted(buckets):
+            if h <= bh and w <= bw:
+                fit = (bh, bw)
+                break
+        if fit is None:
+            fit = (h, w)
+        padded = np.zeros(fit, np.float32)
+        padded[:h, :w] = img
+        out.setdefault(fit, ([], [], []))
+        out[fit][0].append(padded)
+        out[fit][1].append(idx)
+        out[fit][2].append((h, w))
+    return {k: (np.stack(v[0]), v[1], v[2]) for k, v in out.items()}
+
+
+__all__ = ["detect_batch", "data_parallel_mesh", "local_mesh",
+           "bucket_images"]

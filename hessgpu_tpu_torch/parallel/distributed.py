@@ -2,14 +2,30 @@
 hessgpu_tpu/parallel/distributed.py).
 
 The JAX package spreads work over a device mesh with jax.distributed and
-XLA collectives. Here a mesh is a torch.distributed process group in which
-each rank holds one device (nccl between cards, gloo between CPU
-processes):
+XLA collectives. Here a mesh has one of two routes, chosen by its maker:
+
+  * a process group (device_mesh): each rank of a torch.distributed group
+    holds one shard on its own device (nccl between cards, gloo between
+    CPU processes or between processes that share a card);
+  * in process (local_mesh): all n shards on one device, riding a leading
+    axis of size n - the counterpart of the JAX package's virtual CPU
+    devices.
+
+Code that runs on a mesh holds its shards as a leading axis of length
+len(mesh.shards) (n in process, 1 in a group) and meets the other shards
+through three collectives that work on both routes:
+
+  * all_gather(x, mesh): (n, ...) - every shard's block, in shard order;
+  * psum(x, mesh): the sum over the shards, in shard order in process;
+  * exchange_halo(block, halo, mesh): each shard's rows extended by `halo`
+    rows of its ring neighbours, clamped to the edge at the global borders
+    (an all_gather of every shard's top and bottom rows, not send/recv).
+
+Besides:
 
   * initialize(): joins the process group (no-op without a coordinator).
-  * device_mesh(): the one-axis mesh of the group's ranks.
   * match_sharded(): the all-pairs descriptor matcher with image 1's rows
-    split over the mesh's ranks, walked in (row tile, column tile) blocks,
+    split over the mesh's shards, walked in (row tile, column tile) blocks,
     so that the (N1, N2) dot matrix never exists whole. mesh=None runs it
     on one device.
 """
@@ -50,12 +66,23 @@ def initialize(coordinator_address: Optional[str] = None,
 
 @dataclass(frozen=True)
 class DeviceMesh:
-    """A one-axis mesh: `size` ranks of a process group (None: the default
-    group), each holding one device; `rank` is this process's place in it."""
+    """A one-axis mesh of `size` shards.
+
+    Process-group route (in_process False): the shards are the ranks of
+    `group` (None: the default group), one device each; `rank` is this
+    process's shard. In-process route (in_process True): this process
+    holds all the shards, on one device."""
     axis_name: str
     size: int
     rank: int
     group: Optional[dist.ProcessGroup] = None
+    in_process: bool = False
+
+    @property
+    def shards(self) -> range:
+        """The shards this process holds, in order."""
+        return range(self.size) if self.in_process \
+            else range(self.rank, self.rank + 1)
 
 
 def device_mesh(axis_name: str = "batch",
@@ -74,6 +101,80 @@ def device_mesh(axis_name: str = "batch",
         raise ValueError(f"n_devices={n_devices}: the group has {world}")
     group = None if n == world else dist.new_group(list(range(n)))
     return DeviceMesh(axis_name, n, dist.get_rank(), group)
+
+
+def local_mesh(n: int, axis_name: str = "batch") -> DeviceMesh:
+    """An in-process mesh of n shards: every shard in this process, on the
+    device its tensors lie on."""
+    if n < 1:
+        raise ValueError(f"local_mesh: n={n} must be positive")
+    return DeviceMesh(axis_name, n, 0, None, in_process=True)
+
+
+def mesh_shards(mesh: Optional[DeviceMesh]) -> range:
+    """The shards this process holds (range(1) without a mesh)."""
+    return range(1) if mesh is None else mesh.shards
+
+
+def all_gather(x: torch.Tensor, mesh: Optional[DeviceMesh]) -> torch.Tensor:
+    """x: this process's shards' blocks (len(mesh.shards), ...). Returns
+    (mesh.size, ...): every shard's block in shard order."""
+    if mesh is None or mesh.in_process or mesh.size == 1:
+        return x
+    return _all_gather(x[0], mesh)
+
+
+def psum(x: torch.Tensor, mesh: Optional[DeviceMesh]) -> torch.Tensor:
+    """x: (len(mesh.shards), ...). Returns the sum over all the mesh's
+    shards, (...), on every shard. In process the shards are added in
+    order, x[0] + x[1] + ...; a group's all_reduce adds in its backend's
+    order."""
+    if mesh is None or mesh.in_process or mesh.size == 1:
+        acc = x[0]
+        for i in range(1, x.shape[0]):
+            acc = acc + x[i]
+        return acc
+    out = x[0].clone()
+    dist.all_reduce(out, group=mesh.group)
+    return out
+
+
+def exchange_halo(block: torch.Tensor, halo: int,
+                  mesh: Optional[DeviceMesh]) -> torch.Tensor:
+    """Rows of a row-sharded array, extended by the ring neighbours' rows.
+
+    block: (len(mesh.shards), ..., rows, W), shard s holding global rows
+    [s * rows, (s + 1) * rows). Returns (len(mesh.shards), ...,
+    rows + 2 * halo, W): above each shard's rows the last `halo` rows of
+    shard s - 1, below them the first `halo` rows of shard s + 1, and at
+    the global borders the edge row repeated (clamp-to-edge, as the
+    one-device stencils). Needs halo <= rows: the exchange reaches the
+    neighbours only."""
+    rows = block.shape[-2]
+    if halo == 0:
+        return block
+    if not 0 < halo <= rows:
+        raise ValueError(f"exchange_halo: halo {halo} exceeds the band's "
+                         f"{rows} rows")
+    n = 1 if mesh is None else mesh.size
+    own = mesh_shards(mesh)
+    lo, hi = own.start, own.stop
+    tops = all_gather(block[..., :halo, :], mesh)
+    bots = all_gather(block[..., rows - halo:, :], mesh)
+    shape = block.shape[:-2] + (rows + 2 * halo, block.shape[-1])
+    out = block.new_empty(shape)
+    out[..., halo:halo + rows, :] = block
+    first = max(lo, 1)                       # shards with a shard above
+    if first < hi:
+        out[first - lo:, ..., :halo, :] = bots[first - 1:hi - 1]
+    if lo == 0:
+        out[0, ..., :halo, :] = block[0, ..., :1, :]
+    last = min(hi, n - 1)                    # shards with a shard below
+    if lo < last:
+        out[:last - lo, ..., rows + halo:, :] = tops[lo + 1:last + 1]
+    if hi == n:
+        out[-1, ..., rows + halo:, :] = block[-1, ..., rows - 1:, :]
+    return out
 
 
 def _row_tile(rows: int, n2_tile: int, guided: bool,
@@ -99,10 +200,14 @@ def _merge_top2(v1, i1, v2, bv, bi, nv) -> None:
 
 
 def _all_gather(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
-    """(mesh.size, *x.shape): x from every rank, in rank order."""
-    out = [torch.empty_like(x) for _ in range(mesh.size)]
-    dist.all_gather(out, x.contiguous(), group=mesh.group)
-    return torch.stack(out)
+    """(mesh.size, *x.shape): x from every rank of a group, in rank
+    order."""
+    src = x.contiguous()
+    if src.dtype == torch.bool:          # gathered as bytes
+        src = src.to(torch.uint8)
+    out = [torch.empty_like(src) for _ in range(mesh.size)]
+    dist.all_gather(out, src, group=mesh.group)
+    return torch.stack(out).to(x.dtype)
 
 
 def match_sharded(d1, d2, mesh: Optional[DeviceMesh] = None,
@@ -115,10 +220,11 @@ def match_sharded(d1, d2, mesh: Optional[DeviceMesh] = None,
     (N2, 128), NumPy arrays or tensors: the match index per row of d1 or -1,
     int64 (N1,) on `device`, equal to matcher._match_core's.
 
-    mesh: each rank takes a contiguous ceil(N1 / size) of d1's rows (every
+    mesh: each shard takes a contiguous ceil(N1 / size) of d1's rows (every
     rank passes all of d1, d2 and the locations); the column statistics are
     combined by all_gather, and every rank returns the full (N1,) result.
-    mesh=None is one device.
+    An in-process mesh walks its shards one after another. mesh=None is one
+    device.
 
     Guided mode (reference GetGuidedSiftMatch): loc1 (N1, 2), loc2 (N2, 2)
     and a homography H and/or a fundamental matrix F; pairs outside the gate
@@ -151,68 +257,74 @@ def match_sharded(d1, d2, mesh: Optional[DeviceMesh] = None,
         H, F = tensor(H, torch.float32), tensor(F, torch.float32)
         loc1, loc2 = tensor(loc1, torch.float32), tensor(loc2, torch.float32)
     d1, d2 = tensor(d1), tensor(d2)
-    size, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
-    if not 0 <= rank < size:
+    size = 1 if mesh is None else mesh.size
+    if mesh is not None and not 0 <= mesh.rank < size:
         raise ValueError("this process is not a rank of the mesh")
     n1, n2 = d1.shape[0], d2.shape[0]
     if n1 == 0 or n2 == 0:
         return torch.full((n1,), -1, dtype=torch.int64, device=dev)
     nloc = -(-n1 // size)
-    r0, r1 = min(n1, rank * nloc), min(n1, (rank + 1) * nloc)
-    m = r1 - r0
-
     if n2_tile is None and nloc * n2 * 4 > 256 * 1024 * 1024:
         n2_tile = 16384
     n2_tile = min(n2_tile or n2, n2)
-    n1_tile = _row_tile(m, n2_tile, guided, dev)
-
     f32 = dict(dtype=torch.float32, device=dev)
-    rv, rn = torch.full((m,), -np.inf, **f32), torch.full((m,), -np.inf, **f32)
-    ri = torch.zeros(m, dtype=torch.int64, device=dev)
-    cv, cn = torch.full((n2,), -np.inf, **f32), torch.full((n2,), -np.inf,
-                                                           **f32)
-    ci = torch.zeros(n2, dtype=torch.int64, device=dev)
-    for i0 in range(0, m, n1_tile):
-        i1 = min(m, i0 + n1_tile)
-        a = d1[r0 + i0:r0 + i1]
-        for j0 in range(0, n2, n2_tile):
-            j1 = min(n2, j0 + n2_tile)
-            dots = descriptor_dots(a, d2[j0:j1])
-            if guided:
-                gate = _guided_gate(loc1[r0 + i0:r0 + i1], loc2[j0:j1], H,
-                                    hdistmax, F, fdistmax)
-                dots = dots.masked_fill_(~gate, -1.0)
-                del gate
-            bi, bv, nv = _best_two(dots, 1)
-            _merge_top2(rv[i0:i1], ri[i0:i1], rn[i0:i1], bv, bi + j0, nv)
-            if mutual_best:
-                bi, bv, nv = _best_two(dots, 0)
-                _merge_top2(cv[j0:j1], ci[j0:j1], cn[j0:j1], bv,
-                            bi + (r0 + i0), nv)
-            del dots
 
+    def shard_top2(rank):
+        """Rows [r0, r1) of d1 against every column: the rows' and the
+        columns' running (best, index, second)."""
+        r0, r1 = min(n1, rank * nloc), min(n1, (rank + 1) * nloc)
+        m = r1 - r0
+        n1_tile = _row_tile(m, n2_tile, guided, dev)
+        rv = torch.full((m,), -np.inf, **f32)
+        rn = torch.full((m,), -np.inf, **f32)
+        ri = torch.zeros(m, dtype=torch.int64, device=dev)
+        cv = torch.full((n2,), -np.inf, **f32)
+        cn = torch.full((n2,), -np.inf, **f32)
+        ci = torch.zeros(n2, dtype=torch.int64, device=dev)
+        for i0 in range(0, m, n1_tile):
+            i1 = min(m, i0 + n1_tile)
+            a = d1[r0 + i0:r0 + i1]
+            for j0 in range(0, n2, n2_tile):
+                j1 = min(n2, j0 + n2_tile)
+                dots = descriptor_dots(a, d2[j0:j1])
+                if guided:
+                    gate = _guided_gate(loc1[r0 + i0:r0 + i1], loc2[j0:j1],
+                                        H, hdistmax, F, fdistmax)
+                    dots = dots.masked_fill_(~gate, -1.0)
+                    del gate
+                bi, bv, nv = _best_two(dots, 1)
+                _merge_top2(rv[i0:i1], ri[i0:i1], rn[i0:i1], bv, bi + j0, nv)
+                if mutual_best:
+                    bi, bv, nv = _best_two(dots, 0)
+                    _merge_top2(cv[j0:j1], ci[j0:j1], cn[j0:j1], bv,
+                                bi + (r0 + i0), nv)
+                del dots
+        return r0, r1, rv, ri, rn, cv, ci, cn
+
+    parts = [shard_top2(rank) for rank in mesh_shards(mesh)]
     none = torch.tensor(-1, dtype=torch.int64, device=dev)
-    row_match = torch.where(_accept(rv, rn, distmax, ratiomax) & (rv > 0),
-                            ri, none)
     if mutual_best:
-        if size > 1:
-            # the best over the ranks is the first of equal maxima (the
-            # lowest rows); its second is the best of the other ranks' firsts
-            # and its own second
-            all_cv = _all_gather(cv, mesh)
-            best = all_cv.argmax(0, keepdim=True)
-            ci = _all_gather(ci, mesh).gather(0, best)[0]
-            own = torch.zeros_like(all_cv, dtype=torch.bool).scatter_(
-                0, best, True)
-            cn = torch.where(own, _all_gather(cn, mesh), all_cv).amax(0)
-            cv = all_cv.gather(0, best)[0]
+        cv, ci, cn = (torch.stack([p[k] for p in parts]) for k in (5, 6, 7))
+        # the best over the shards is the first of equal maxima (the lowest
+        # rows); its second is the best of the other shards' firsts and its
+        # own second
+        all_cv = all_gather(cv, mesh)
+        best = all_cv.argmax(0, keepdim=True)
+        ci = all_gather(ci, mesh).gather(0, best)[0]
+        own = torch.zeros_like(all_cv, dtype=torch.bool).scatter_(
+            0, best, True)
+        cn = torch.where(own, all_gather(cn, mesh), all_cv).amax(0)
+        cv = all_cv.gather(0, best)[0]
         col_match = torch.where(_accept(cv, cn, distmax, ratiomax) & (cv > 0),
                                 ci, none)
-        rows = torch.arange(r0, r1, device=dev)
-        mutual = col_match[row_match.clamp(0, n2 - 1)] == rows
-        row_match = torch.where((row_match >= 0) & mutual, row_match, none)
-    if size > 1:
-        padded = torch.full((nloc,), -1, dtype=torch.int64, device=dev)
-        padded[:m] = row_match
-        row_match = _all_gather(padded, mesh).reshape(-1)[:n1]
-    return row_match
+    out = torch.full((len(parts), nloc), -1, dtype=torch.int64, device=dev)
+    for k, (r0, r1, rv, ri, rn, *_) in enumerate(parts):
+        row_match = torch.where(
+            _accept(rv, rn, distmax, ratiomax) & (rv > 0), ri, none)
+        if mutual_best:
+            rows = torch.arange(r0, r1, device=dev)
+            mutual = col_match[row_match.clamp(0, n2 - 1)] == rows
+            row_match = torch.where((row_match >= 0) & mutual, row_match,
+                                    none)
+        out[k, :r1 - r0] = row_match
+    return all_gather(out, mesh).reshape(-1)[:n1]

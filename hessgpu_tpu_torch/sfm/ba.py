@@ -155,14 +155,16 @@ def segment_sum(values: torch.Tensor, index: torch.Tensor, n: int):
         (index,), values, accumulate=True)
 
 
-def _block_jacobi(state: BAState, prob: BAProblem, lam, blocks=None):
+def _block_jacobi(state: BAState, prob: BAProblem, lam, blocks=None,
+                  seg=segment_sum):
     """Inverse block-diagonal preconditioner from per-observation
-    Jacobians (`blocks`, else _jacobian_blocks): (C, 6, 6) and (P, 3, 3)."""
+    Jacobians (`blocks`, else _jacobian_blocks): (C, 6, 6) and (P, 3, 3).
+    seg: the segment sum (a sharded step sums over the mesh too)."""
     with full_f32_matmul():
         Jp, Jx = _jacobian_blocks(state, prob) if blocks is None else blocks
         ci, pi = prob.cam_idx, prob.pt_idx
-        Hc = segment_sum(Jp.mT @ Jp, ci, state.R.shape[0])
-        Hp = segment_sum(Jx.mT @ Jx, pi, state.X.shape[0])
+        Hc = seg(Jp.mT @ Jp, ci, state.R.shape[0])
+        Hp = seg(Jx.mT @ Jx, pi, state.X.shape[0])
     Hc = Hc + lam * torch.eye(6, dtype=Hc.dtype, device=Hc.device)[None]
     Hp = Hp + lam * torch.eye(3, dtype=Hp.dtype, device=Hp.device)[None]
     # inv_ex: no host sync for the singularity check
@@ -204,7 +206,12 @@ def lm_step(state: BAState, prob: BAProblem, lam: torch.Tensor,
         return _lm_step(state, prob, lam, cg_iters, fix_first_cam)
 
 
-def _lm_step(state, prob, lam, cg_iters, fix_first_cam):
+def _lm_step(state, prob, lam, cg_iters, fix_first_cam, seg=segment_sum,
+             total=torch.sum):
+    """The LM step. seg(values, index, n) is the segment sum of the
+    Jacobian's transpose and of the preconditioner blocks, total(x) the sum
+    of the squared residuals: a sharded step (sfm/distributed_ba.py) passes
+    its shard-local sums followed by a sum over the mesh."""
     fn = _residual_fn(state, prob)
     blocks = Jp, Jx = _jacobian_blocks(state, prob)
     ci, pi = prob.cam_idx, prob.pt_idx
@@ -223,18 +230,18 @@ def _lm_step(state, prob, lam, cg_iters, fix_first_cam):
 
     def vjp(u):                               # J^T u: (C, 6), (P, 3)
         u = u[..., None]
-        return (segment_sum((Jp.mT @ u)[..., 0], ci, C),
-                segment_sum((Jx.mT @ u)[..., 0], pi, P))
+        return (seg((Jp.mT @ u)[..., 0], ci, C),
+                seg((Jx.mT @ u)[..., 0], pi, P))
 
     res0 = fn(vp0, vx0)
-    cost0 = 0.5 * (res0 ** 2).sum()
+    cost0 = 0.5 * total(res0 ** 2)
     grad = vjp(res0)             # J^T r, (dpose, dpoint)
 
     def hvp(vp, vx):
         hp, hx = vjp(jvp(vp, vx))
         return (hp + lam * vp) * cam_mask, hx + lam * vx
 
-    Mc, Mp = _block_jacobi(state, prob, lam, blocks)
+    Mc, Mp = _block_jacobi(state, prob, lam, blocks, seg)
 
     def precond(rp, rx):
         return (torch.einsum("cij,cj->ci", Mc, rp) * cam_mask,
@@ -262,7 +269,7 @@ def _lm_step(state, prob, lam, cg_iters, fix_first_cam):
 
     # evaluate the step
     res1 = fn(xp, xx)
-    cost1 = 0.5 * (res1 ** 2).sum()
+    cost1 = 0.5 * total(res1 ** 2)
     accept = cost1 < cost0
 
     newR = torch.where(accept, so3_exp(xp[:, :3]) @ state.R, state.R)

@@ -40,13 +40,11 @@ from ..utils.precision import full_f32_matmul
 from . import prng
 from .ba import (BAProblem, BAState, _residual_fn, bundle_adjust,
                  prune_outliers, so3_exp)
+from .distributed_ba import bundle_adjust_sharded
 from .twoview import (essential_from_fundamental,
                       ransac_fundamental_from_samples,
                       ransac_pnp_from_samples, recover_pose, triangulate,
                       type_aware_match_mask)
-
-_MESH_REFUSED = ("mesh: the distributed bundle adjustment "
-                 "(sfm/distributed_ba.py) is not ported yet; pass mesh=None")
 
 
 @dataclasses.dataclass
@@ -288,12 +286,12 @@ def reconstruct_sequence(
     frame gets a pose and BA keeps full constraints. 0 disables (every
     registered view triangulates, the round-2 behavior).
 
+    mesh: optional parallel.distributed mesh - every periodic and final BA
+    ends with a distributed LM polish over it (run_global_ba).
+
     device: where the numeric calls run ("cuda" unless the CPU is asked
-    for). mesh must be None: the distributed bundle adjustment is not
-    ported.
+    for).
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_REFUSED)
     device = resolve_device(device)
     n_img = len(feature_sets)
     if n_img < 2:
@@ -805,10 +803,12 @@ def run_global_ba(rec: Reconstruction, iterations: int = 10,
     prune_threshold > 0 additionally zero-weights observations with
     reprojection error above that many pixels and re-solves.
 
-    device: where BA runs ("cuda" unless the CPU is asked for). mesh must
-    be None: the distributed LM polish is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_REFUSED)
+    mesh: optional parallel.distributed mesh - after the robust solve (and
+    pruning), the observations are sharded across the mesh and a final
+    distributed LM polish runs (distributed_ba.bundle_adjust_sharded,
+    matrix-free CG with its sums reduced over the mesh).
+
+    device: where BA runs ("cuda" unless the CPU is asked for)."""
     device = resolve_device(device)
 
     obs = np.asarray([(c, p, u, v) for c, p, u, v in rec.obs
@@ -835,6 +835,9 @@ def run_global_ba(rec: Reconstruction, iterations: int = 10,
             out, _ = bundle_adjust(out, prob,
                                    iterations=max(3, iterations // 2),
                                    huber_delta=huber_delta, loss=loss)
+    if mesh is not None:
+        out, _ = bundle_adjust_sharded(out, prob, mesh,
+                                       iterations=max(3, iterations // 2))
     R, t = _host(out.R), _host(out.t)
     rec.R = [R[i] for i in range(C)]
     rec.t = [t[i] for i in range(C)]

@@ -539,3 +539,85 @@ def test_upsampled_octave_through_the_chain_and_detect(card):
                            getattr(wm, f)[wm.valid]), f
     torch.testing.assert_close(ggrad, wgrad, rtol=1e-6, atol=0)
     torch.testing.assert_close(grot, wrot, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_patch_kernels_read_band_maps_through_their_row_origin(card, n):
+    """The key levels' maps of a 256-row octave cut into n bands of rows
+    plus `halo` rows (edge rows repeated past the borders), each band read
+    through its row origin: both kernels give the whole maps' results bit
+    for bit (the same pixels in the same order), on keypoints at every band
+    border with sigmas up to the largest a keypoint may have, whose support
+    the spatial path's halo covers."""
+    cfg, t, maps, owin, dwin = _keypoint_scene(card, (1, 256, 200),
+                                               "hessian", threshold=0.002)
+    grad, rot = maps.grad[0], maps.rot[0]                # (1, 3, 256, 200)
+    p = cfg.scale_params()
+    max_sigma = p.key_level_sigma(p.key_levels[-1]) * p.sigmak
+    halo, hl = (max(owin, dwin) - 1) // 2 + 2, 256 // n   # spatial.py's
+    pad = lambda a: torch.cat([a[..., :1, :].expand(1, 3, halo, 200), a,
+                               a[..., -1:, :].expand(1, 3, halo, 200)], -2)
+    bands = lambda a: torch.stack([pad(a)[0, :, s * hl:s * hl + hl + 2 * halo]
+                                   for s in range(n)])
+    whole = type(maps)((grad.expand(n, 3, 256, 200).contiguous(),),
+                       (rot.expand(n, 3, 256, 200).contiguous(),))
+    banded = type(maps)((bands(grad),), (bands(rot),), (-halo,), (hl,),
+                        (256,))
+    rng = np.random.RandomState(n)
+    G = 32
+    rows = np.stack([s * hl + np.concatenate([
+        rng.uniform(0, 3, 8), rng.uniform(hl - 3, hl, 8),
+        rng.uniform(0, hl, 16)]) for s in range(n)]).astype(np.float32)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(card)
+    x, y = f32(rng.uniform(1, 199, (n, G))), f32(rows)
+    sigma = f32(rng.uniform(1.5, max_sigma, (n, G)))
+    valid = torch.ones((n, G), dtype=torch.bool, device=card)
+    lid = torch.from_numpy(rng.randint(0, 3, (n, G)).astype(np.int32)) \
+        .to(card)
+    a = patch.orientation(x, y, sigma, valid, lid, whole, owin,
+                          return_votes=True)
+    b = patch.orientation(x, y, sigma, valid, lid, banded, owin,
+                          return_votes=True)
+    for u, v in zip(a, b):
+        assert u is None or torch.equal(u, v)
+    theta = a.thetas[..., 0].contiguous()
+    da = patch.descriptor(x, y, sigma, theta, valid, lid, whole, dwin)
+    db = patch.descriptor(x, y, sigma, theta, valid, lid, banded, dwin)
+    assert torch.equal(da, db) and bool(da.abs().sum() > 0)
+    # and the plain versions read the bands alike
+    pb = patch.descriptor_plain(x, y, sigma, theta, valid, lid, banded, dwin)
+    scale = pb.abs().amax((-2, -1), keepdim=True).clamp_min(1e-30)
+    assert float(((db - pb).abs() / scale).max()) <= VOTE_TOL
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_spatial_path_goes_through_the_kernels(card, n):
+    """sharded_detect_and_describe on an in-process mesh of n bands of a
+    512x256 texture: launches of blur, downsample2, detect_octave and one
+    orientation and one descriptor launch, no chain; the table equal to
+    the same path through the plain versions on the card (keypoints bit
+    for bit, descriptors within 2e-6) and to one-device
+    detect_and_describe (bit for bit), no shard's level cap being full."""
+    from hessgpu_tpu_torch import detect_and_describe
+    from hessgpu_tpu_torch.parallel.distributed import local_mesh
+    from hessgpu_tpu_torch.parallel.spatial import sharded_detect_and_describe
+    img = texture_frame(7, 512, 256)
+    cfg = SiftConfig()
+    reset_launch_counts()
+    got, aux = sharded_detect_and_describe(img, cfg, local_mesh(n),
+                                           with_aux=True)
+    counts = launch_counts()
+    assert counts["octave_chain"] == 0 and counts["orientation"] == 1 \
+        and counts["descriptor"] == 1
+    assert min(counts["blur"], counts["downsample2"],
+               counts["detect_octave"]) > 0
+    assert not bool((aux["shard_level_counts"] >= aux["level_cap"]).any())
+    want = sharded_detect_and_describe(img, cfg, local_mesh(n), plain=True)
+    one, _ = detect_and_describe(img, cfg)
+    assert int(got.valid.sum()) > 50
+    for f in got._fields:
+        if f != "desc":
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+            assert torch.equal(getattr(got, f), getattr(one, f)), f
+    assert float((got.desc - want.desc).abs().max()) <= 2e-6
+    assert torch.equal(got.desc, one.desc)

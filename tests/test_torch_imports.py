@@ -46,6 +46,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import hessgpu_tpu_torch.server_build\n"
         "import hessgpu_tpu_torch.parallel.client\n"
         "import hessgpu_tpu_torch.parallel.distributed\n"
+        "import hessgpu_tpu_torch.parallel.spatial\n"
+        "import hessgpu_tpu_torch.sfm.distributed_ba\n"
+        "import hessgpu_tpu_torch.entry\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'hessgpu_tpu'"
         " or m.startswith('hessgpu_tpu.')]\n"

@@ -18,8 +18,10 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from hessgpu_tpu.parallel.distributed import device_mesh as jax_device_mesh
 from hessgpu_tpu.sfm import incremental as jinc
 from hessgpu_tpu.sfm.io import save_reconstruction as jax_save
+from hessgpu_tpu_torch.parallel.distributed import local_mesh
 from hessgpu_tpu_torch.sfm import incremental as tinc
 from hessgpu_tpu_torch.sfm import posegraph as tpg
 from hessgpu_tpu_torch.sfm.evaluate import ate_rmse, camera_centers
@@ -147,14 +149,26 @@ def test_resume_from_a_jax_checkpoint(tmp_path):
     assert _ate(rec, Rs, ts) < 0.05
 
 
-def test_mesh_and_a_missing_card_are_refused(seq5):
+def test_a_missing_card_is_refused(seq5):
     K, _, _, _, feats = seq5
-    with pytest.raises(NotImplementedError, match="distributed"):
-        tinc.reconstruct_sequence(feats, K, mesh=object(), device="cpu")
-    rec = tinc.Reconstruction(R=[np.eye(3)], t=[np.zeros(3)], K=K,
-                              points=np.zeros((0, 3)), obs=[], track_of={})
-    with pytest.raises(NotImplementedError, match="distributed"):
-        tinc.run_global_ba(rec, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tinc.reconstruct_sequence(feats, K)     # device defaults to cuda
+
+
+def test_a_mesh_reproduces_the_jax_mesh_run(seq5):
+    """mesh=: every periodic and the final BA end with the distributed LM
+    polish, the port's over a 2-shard in-process mesh, the JAX package's
+    over 2 virtual CPU devices: the same view_ids and point count, camera
+    centres within 1e-3 (the bound of the mesh=None run above)."""
+    K, Rs, ts, _, feats = seq5
+    want = jinc.reconstruct_sequence(feats, K, ba_every=2,
+                                     mesh=jax_device_mesh("obs", 2))
+    rec = tinc.reconstruct_sequence(feats, K, ba_every=2, mesh=local_mesh(2),
+                                    device="cpu")
+    assert rec.view_ids == want.view_ids == list(range(5))
+    assert rec.num_points == want.num_points
+    np.testing.assert_allclose(camera_centers(rec.R, rec.t),
+                               camera_centers(want.R, want.t),
+                               rtol=0, atol=1e-3)
+    assert _ate(rec, Rs, ts) < 0.05
