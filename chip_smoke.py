@@ -5,7 +5,9 @@
 
 Needs one CUDA device and the CUDA toolkit (nvcc); builds the kernels from
 hessgpu_tpu_torch/csrc at first use. Exits non-zero, printing no result, if
-there is no device, and on any failed phase. Phases, one JSON line each:
+there is no device, and on any failed phase. Every phase before `compiled`
+runs the eager route (inside utils.graphs.disable_graphs), where each kernel
+wrapper counts its launches. Phases, one JSON line each:
 
   device     the card (name and power limit as nvidia-smi gives them)
   build      seconds to build the kernel library
@@ -60,8 +62,11 @@ there is no device, and on any failed phase. Phases, one JSON line each:
              run_sift_current, each reply's bytes against an in-process
              HessianSift on the card (a field that is not bit-equal is named
              and held to the facade's card-vs-CPU rules); match over the wire
-             against SiftMatcher; initialize answers 1; build and start
-             seconds, ms per request over the wire beside the in-process ms
+             against SiftMatcher; initialize answers 1; two clients at
+             once (one server thread each) sending frames 0 and 1 30 times,
+             every reply byte-equal to that frame's reply alone; build and
+             start seconds, ms per request over the wire beside the
+             in-process ms
   match_tiled  bench_match.py's table (seed 0, N1 = N2 = 65536, d2 = d1
              rolled by 7): match_sharded(mesh=None) mutual-best at n2_tile
              16384 equal to n2_tile 8192; 256 sampled rows (non-mutual) equal
@@ -116,6 +121,32 @@ there is no device, and on any failed phase. Phases, one JSON line each:
              seconds
   dryrun     dryrun_multichip(8) (hessgpu_tpu_torch/entry.py) on the card:
              seconds, launches
+  compiled   the JAX package's jit boundaries as captured CUDA graphs
+             (utils/graphs.py): detect_batch (B=16 and B=1) under the
+             default config, -sd -ofix and DoG, and HessianSift.run, the
+             replay bit-equal to the eager route field by field, the graph
+             holding the eager path's kernel launches, a second call on
+             texture_frame(16..31) giving those frames' tables and leaving
+             the first call's unchanged; ms per call in turns (eager,
+             graph, graph, eager; best of 3 windows of ~1 s), frames/s,
+             device busy ms and launches (the profiler's; every kernel of
+             the path must be in the replay's trace), host launches per
+             call, capture seconds,
+             memory_allocated before and after the capture and each graph's
+             pool; two threads at once through one shared graph
+             (HessianSift.run at B=1, detect_batch at B=16, each thread its
+             own frames, 100 calls each: every result equal to the eager
+             one) and two threads capturing two new keys at once; a
+             2400x3200 frame (-maxd's default) under the default config and
+             DoG: bit-equal to eager, the graph's pool against the eager
+             call's peak memory, ms in turns; three replayed lm_steps at
+             bench_ba's size against eager
+             (bit-equal, else cost1 within 1e-4 relative and two replays
+             bit-equal), LM iterations/s in turns; the sfm sequence
+             reconstructed eager, with captured steps twice, eager (40 of
+             40, ATE within the sfm limit, the two graph runs bit-equal;
+             seconds, captures and their seconds, the LM graphs' pools);
+             clear_cache() returning the pools
   blur       the octave-0 blur's ms beside the card's name and power limit
   {"kernels": [...]}   one entry per kernel: launches on the main path,
              error, times, bound; path_ms and path_bound_ms sum a batch's
@@ -131,8 +162,10 @@ there is no device, and on any failed phase. Phases, one JSON line each:
              their time on an all-invalid table, orientation on large
              supports; octave_chain and detect_octave their ms at
              960x1280 (-fo -1); every kernel its launches on each path
-             (launches_by_path, the mesh phases' paths too) and its device
-             ms in the 4-band spatial run (spatial_n4_device_ms)
+             (launches_by_path, the mesh phases' paths too), its device
+             ms in the 4-band spatial run (spatial_n4_device_ms) and its
+             launches that the default B=16 graph holds and replays
+             (launches_per_default_replay, its capture's count)
   <name>, <power limit>
   {"ok": true, "device": {...}}
 """
@@ -145,6 +178,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 # Keypoints of the seed-0 640x480 texture under SiftConfig(
@@ -203,7 +237,7 @@ DETAIL = ("fused_into", "octave_ms_without_decimation",
           "octave_ms", "valid_cells", "bound_ms_dense_contract",
           "path_bound_ms_dense_contract", "octave0_warp_share_nms",
           "octave0_warp_share_keypoint", "ms_960x1280", "launches_by_path",
-          "spatial_n4_device_ms")
+          "spatial_n4_device_ms", "launches_per_default_replay")
 # ba phase: bench_ba.py's problem (64 cameras, 4096 points, every camera
 # sees every 8th point: 32768 observations), built here in NumPy
 BA_CAMS, BA_PTS, BA_SEE_EVERY = 64, 4096, 8
@@ -231,6 +265,17 @@ BATCH_MESH, BATCH_MESH_REPS = 2, 10
 BA_MESHES = (2, 8)
 SFM_MESH = 2
 DRYRUN_SHARDS = 8
+# compiled phase: host ms per call as the best of COMPILED_WINDOWS windows of
+# about COMPILED_WINDOW_S seconds each (bench.py's reasoning against host
+# noise), eager and graph routes in turns
+COMPILED_WINDOW_S, COMPILED_WINDOWS = 1.0, 3
+# calls each of two threads makes at once through one shared graph (in
+# process), and requests each of two server clients sends at once
+THREAD_ROUNDS = 100
+SERVER_ROUNDS = 30
+# the largest frame -maxd's default (3200) lets through, 4:3: one graph's
+# pool at that size against the eager call's peak
+BIG_HEIGHT, BIG_WIDTH = 2400, 3200
 # one 4032x6048 frame through the spatial path, 8 octaves: the initial blur
 # and 4 level blurs an octave, 7 decimations, a detect an octave, one
 # orientation and one descriptor launch over every level and band
@@ -385,6 +430,60 @@ def gloo_rank(rank, world, url, frames, image, ba_np, out_dir):
                  batch_ms=batch_ms, spatial_ms=spatial_ms, **res)
     finally:
         dist.destroy_process_group()
+
+
+def gloo_rank_eager(*args):
+    """gloo_rank on the eager route, as the parent's phases run."""
+    from hessgpu_tpu_torch.utils.graphs import disable_graphs
+    with disable_graphs():
+        gloo_rank(*args)
+
+
+def server_clients_at_once(r, port, images, sequential):
+    """Two clients of one server at once (the server gives each its own
+    thread), each sending its own image of one size SERVER_ROUNDS times:
+    every reply must equal, byte for byte, the server's reply to that image
+    when it was alone (`sequential`). `r` is the first client; the second
+    connects to `port`. Returns the replies for the caller's own checks."""
+    from hessgpu_tpu_torch.parallel.client import RemoteSift
+
+    r2 = RemoteSift(host="127.0.0.1", port=port)
+    if not r2.initialize():
+        fail("server: a second client's initialize answered 0")
+    clients = [r, r2]
+    got = [[], []]
+    errors = []
+    start = threading.Barrier(2)
+
+    def client(i):
+        try:
+            start.wait()
+            for _ in range(SERVER_ROUNDS):
+                if not clients[i].run_sift_data(images[i]):
+                    errors.append(f"client {i}: run_sift_data answered 0")
+                    return
+                got[i].append(clients[i].get_feature_vector())
+        except Exception as e:                  # noqa: BLE001
+            errors.append(f"client {i}: {e!r}")
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in (0, 1)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    seconds = time.perf_counter() - t0
+    r2.close()
+    if errors:
+        fail(f"server: two clients at once: {errors}")
+    wrong = [sum(kp.tobytes() != sequential[i][0].tobytes()
+                 or desc.tobytes() != sequential[i][1].tobytes()
+                 for kp, desc in got[i]) for i in (0, 1)]
+    if wrong != [0, 0] or [len(g) for g in got] != [SERVER_ROUNDS] * 2:
+        fail(f"server: two clients at once: {wrong} of {SERVER_ROUNDS} "
+             "replies each differ from the reply to the image alone")
+    return dict(rounds=SERVER_ROUNDS, replies_differing=wrong,
+                seconds=seconds, replies=got)
 
 
 def mesh_phases(dev, smi_line, same, max_abs, launches_by_path, frames,
@@ -583,7 +682,7 @@ def mesh_phases(dev, smi_line, same, max_abs, launches_by_path, frames,
     workdir = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
     try:
         t0 = time.perf_counter()
-        mp.start_processes(gloo_rank, args=(
+        mp.start_processes(gloo_rank_eager, args=(
             2, f"file://{workdir}/rendezvous", frames, image, ba_np, workdir),
             nprocs=2, join=True, start_method="spawn")
         gloo_s = time.perf_counter() - t0
@@ -656,6 +755,383 @@ def mesh_phases(dev, smi_line, same, max_abs, launches_by_path, frames,
     return kernel_ms
 
 
+def compiled_phase(dev, smi_line, same, frames, ba_np, seq):
+    """The compiled phase: the JAX package's jit boundaries as captured CUDA
+    graphs (run_pipeline_jit, _batched_pipeline, lm_step) against the eager
+    route they capture, which runs inside disable_graphs(). Returns the
+    launches of each kernel that the default B=16 graph holds (its
+    capture's count), by kernel."""
+    import numpy as np
+    import torch
+
+    from hessgpu_tpu_torch import HessianSift, SiftConfig, detect_batch
+    from hessgpu_tpu_torch import pyramid as tpyr
+    from hessgpu_tpu_torch.convert import ba_from_numpy
+    from hessgpu_tpu_torch.sfm import ba as tba
+    from hessgpu_tpu_torch.sfm import incremental as tinc
+    from hessgpu_tpu_torch.sfm.evaluate import ate_rmse, camera_centers
+    from hessgpu_tpu_torch.sfm.synthetic import texture_frame
+    from hessgpu_tpu_torch.utils.graphs import disable_graphs
+    from hessgpu_tpu_torch.utils.timing import device_profile
+
+    def eager(fn):
+        def run(*a, **kw):
+            with disable_graphs():
+                return fn(*a, **kw)
+        return run
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def window_ms(fn):
+        """Host ms per call of fn: the best of COMPILED_WINDOWS windows of
+        about COMPILED_WINDOW_S each, a synchronize before and after each."""
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        n = max(1, int(COMPILED_WINDOW_S / max(time.perf_counter() - t0,
+                                               1e-6)))
+        best = float("inf")
+        for _ in range(COMPILED_WINDOWS):
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            sync()
+            best = min(best, (time.perf_counter() - t0) * 1e3 / n)
+        return best
+
+    def in_turns(eager_fn, graph_fn):
+        """eager, graph, graph, eager: each turn's best window, ms per call."""
+        return [window_ms(f) for f in (eager_fn, graph_fn, graph_fn,
+                                       eager_fn)]
+
+    def tables_equal(a, b, what):
+        for f in a._fields:
+            if not same(getattr(a, f), getattr(b, f)):
+                fail(f"compiled: {what}: {f} of the replay differs from the "
+                     "eager route")
+
+    def kernel_launches(prof):
+        return {k: int(round(sum(n for name, (_, n) in prof["by_kernel"]
+                                 .items() if sym in name)))
+                for k, sym in KERNEL_SYMBOL.items()}
+
+    graphs = tpyr._PIPELINE_GRAPHS
+    cfgs = {"default": (SiftConfig(), EXPECTED_LAUNCHES_DEFAULT),
+            "sd-ofix": (SiftConfig(compute_descriptors=False,
+                                   fixed_orientation=True), EXPECTED_LAUNCHES),
+            "dog": (SiftConfig(detector="dog"), EXPECTED_LAUNCHES_DEFAULT)}
+    imgs = torch.from_numpy(frames).to(dev)
+    imgs2 = torch.from_numpy(np.stack([
+        texture_frame(s, HEIGHT, WIDTH)
+        for s in range(BATCH, 2 * BATCH)])).to(dev)
+    replay_launches = {}
+    paths = {}
+    for name, (cfg, expected) in cfgs.items():
+        for b in (BATCH, 1):
+            x, x2 = imgs[:b], imgs2[:b]
+            want = eager(detect_batch)(x, cfg)
+            sync()
+            alloc0 = torch.cuda.memory_allocated()
+            captures0 = graphs.captures
+            t0 = time.perf_counter()
+            got = detect_batch(x, cfg)
+            sync()
+            first_s = time.perf_counter() - t0
+            alloc1 = torch.cuda.memory_allocated()
+            if graphs.captures != captures0 + 1:
+                fail(f"compiled: {name} B={b}: {graphs.captures - captures0} "
+                     "captures on the first call")
+            st = graphs.stats()[-1]
+            got_launches = dict(st.launches)
+            want_launches = {k: n for k, n in expected.items() if n}
+            if got_launches != want_launches:
+                fail(f"compiled: {name} B={b}: the graph holds the kernel "
+                     f"launches {got_launches}, the eager path "
+                     f"{want_launches}")
+            tables_equal(got, want, f"{name} B={b}")
+            kept = [t.clone() for t in got]
+            got2 = detect_batch(x2, cfg)
+            tables_equal(got2, eager(detect_batch)(x2, cfg),
+                         f"{name} B={b}, other frames")
+            for t, k in zip(got, kept):
+                if not same(t, k):
+                    fail(f"compiled: {name} B={b}: a later replay changed an "
+                         "earlier call's result")
+            if same(got.x, got2.x):
+                fail(f"compiled: {name} B={b}: other frames gave the same "
+                     "table")
+            rep = dict(capture_s=st.capture_s, first_call_s=first_s,
+                       memory_allocated_before=alloc0,
+                       memory_allocated_after=alloc1,
+                       graph_kept_bytes=st.kept_bytes,
+                       graph_pool_reserved_bytes=st.pool_reserved_bytes,
+                       graph_kernel_launches=got_launches,
+                       host_launches_per_call_graph=st.inputs + 1
+                       + st.outputs, features=got.count().tolist()[:4])
+            if b == BATCH:
+                # the replay's trace must hold every kernel of the path (the
+                # profiler's counts a call are approximate: it can lose an
+                # event, so they are reported, not pinned)
+                prof_e = device_profile(eager(detect_batch), x, cfg)
+                prof_g = device_profile(detect_batch, x, cfg)
+                le, lg = kernel_launches(prof_e), kernel_launches(prof_g)
+                if any(lg[k] < 1 for k in want_launches):
+                    fail(f"compiled: {name}: the replay's trace holds the "
+                         f"kernels {lg}, the eager route's {le}")
+                if name == "default":
+                    replay_launches = {k: got_launches.get(k, 0)
+                                       for k in KERNEL_SYMBOL}
+                ms = in_turns(lambda: eager(detect_batch)(x, cfg),
+                              lambda: detect_batch(x, cfg))
+                rep.update(
+                    ms_per_batch_eager_graph_graph_eager=ms,
+                    frames_per_s_eager=BATCH * 1e3 / min(ms[0], ms[3]),
+                    frames_per_s_graph=BATCH * 1e3 / min(ms[1], ms[2]),
+                    busy_ms_eager=prof_e["busy_ms"],
+                    busy_ms_graph=prof_g["busy_ms"],
+                    device_launches_eager=prof_e["launches"],
+                    device_launches_graph=prof_g["launches"],
+                    host_launches_per_call_eager=prof_e["launches"],
+                    profiler_kernel_launches_eager=le,
+                    profiler_kernel_launches_graph=lg,
+                    top_device_work_graph=dict(
+                        list(prof_g["by_kernel"].items())[:8]))
+            paths[f"{name}_b{b}"] = rep
+        # HessianSift.run at B=1: a PGM's path, load to download
+        img = frames[0]
+        sift = HessianSift(cfg)
+        want_f = eager(sift.run)(img)
+        got_f = sift.run(img)
+        for k in want_f:
+            if not np.array_equal(got_f[k], want_f[k]):
+                fail(f"compiled: HessianSift.run {name}: {k} of the replay "
+                     "differs from the eager route")
+        ms = in_turns(lambda: eager(sift.run)(img), lambda: sift.run(img))
+        paths[f"{name}_hessian_sift_run"] = dict(
+            features=len(got_f["x"]), ms_per_run_eager_graph_graph_eager=ms)
+    emit("compiled", what="main path", batch=BATCH, height=HEIGHT,
+         width=WIDTH, bit_equal_to_eager=True, no_aliasing=True,
+         graphs=len(graphs), graphs_reserved_bytes=graphs.reserved_bytes(),
+         pipeline_graph_bytes=tpyr.PIPELINE_GRAPH_BYTES,
+         paths=paths, nvidia_smi=smi_line)
+
+    # ---- threads: two callers at once (the server's clients) ---------------
+    def two_threads(runs, inputs, wants, equal, rounds):
+        wrong, errors = [0, 0], []
+        start = threading.Barrier(2)
+
+        def caller(i):
+            try:
+                start.wait()
+                for _ in range(rounds):
+                    if not equal(runs[i](inputs[i]), wants[i]):
+                        wrong[i] += 1
+            except Exception as e:              # noqa: BLE001
+                errors.append(repr(e))
+
+        ts = [threading.Thread(target=caller, args=(i,)) for i in (0, 1)]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        return dict(rounds=rounds, wrong=wrong, errors=errors,
+                    seconds=time.perf_counter() - t0)
+
+    def tables_same(a, b):
+        return all(same(getattr(a, f), getattr(b, f)) for f in a._fields)
+
+    cfg = SiftConfig()
+    sifts = [HessianSift(cfg), HessianSift(cfg)]
+    thread_runs = {
+        # one shared graph, each thread its own frames, call after call
+        "hessian_sift_run_b1": two_threads(
+            [sf.run for sf in sifts], frames[:2],
+            [eager(sf.run)(x) for sf, x in zip(sifts, frames[:2])],
+            lambda a, b: a.keys() == b.keys() and all(
+                np.array_equal(a[k], b[k]) for k in a), THREAD_ROUNDS),
+        "detect_batch_b16": two_threads(
+            [lambda x: detect_batch(x, cfg)] * 2, [imgs, imgs2],
+            [eager(detect_batch)(x, cfg) for x in (imgs, imgs2)],
+            tables_same, THREAD_ROUNDS)}
+    # two new keys met at once: two captures, one after the other
+    tpyr.run_pipeline_jit.clear_cache()
+    pair = [SiftConfig(), cfgs["sd-ofix"][0]]
+    captures0 = graphs.captures
+    thread_runs["two_captures_at_once"] = two_threads(
+        [lambda x, c=c: detect_batch(x, c) for c in pair], [imgs[:4]] * 2,
+        [eager(detect_batch)(imgs[:4], c) for c in pair], tables_same, 1)
+    thread_runs["two_captures_at_once"]["captures"] = \
+        graphs.captures - captures0
+    for k, r in thread_runs.items():
+        if r["wrong"] != [0, 0] or r["errors"]:
+            fail(f"compiled: threads, {k}: {r}")
+    if graphs.captures != captures0 + 2:
+        fail(f"compiled: threads: {graphs.captures - captures0} captures "
+             "for two new keys")
+    emit("compiled", what="threads", runs=thread_runs, nvidia_smi=smi_line)
+
+    # ---- a 3200-pixel frame: one graph's pool at that size -----------------
+    big = texture_frame(0, BIG_HEIGHT, BIG_WIDTH)
+    big_paths = {}
+    for name in ("default", "dog"):
+        sift = HessianSift(cfgs[name][0])
+        sync()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        a0 = torch.cuda.memory_allocated()
+        r0 = torch.cuda.memory_reserved()
+        want_f = eager(sift.run)(big)
+        sync()
+        peak_a = torch.cuda.max_memory_allocated() - a0
+        peak_r = torch.cuda.max_memory_reserved() - r0
+        captures0 = graphs.captures
+        got_f = sift.run(big)
+        if graphs.captures != captures0 + 1:
+            fail(f"compiled: {BIG_HEIGHT}x{BIG_WIDTH} {name}: no capture")
+        for k in want_f:
+            if not np.array_equal(got_f[k], want_f[k]):
+                fail(f"compiled: {BIG_HEIGHT}x{BIG_WIDTH} {name}: {k} of "
+                     "the replay differs from the eager route")
+        st = graphs.stats()[-1]
+        big_paths[name] = dict(
+            features=len(got_f["x"]), eager_peak_allocated_bytes=peak_a,
+            eager_peak_reserved_bytes=peak_r,
+            graph_pool_reserved_bytes=st.pool_reserved_bytes,
+            graph_kept_bytes=st.kept_bytes, capture_s=st.capture_s,
+            ms_per_run_eager_graph_graph_eager=in_turns(
+                lambda: eager(sift.run)(big), lambda: sift.run(big)))
+    emit("compiled", what="3200-pixel frame", height=BIG_HEIGHT,
+         width=BIG_WIDTH, bit_equal_to_eager=True, paths=big_paths,
+         graphs=len(graphs), graphs_reserved_bytes=graphs.reserved_bytes(),
+         pipeline_graph_bytes=tpyr.PIPELINE_GRAPH_BYTES, nvidia_smi=smi_line)
+
+    # ---- BA: lm_step replays against eager ---------------------------------
+    st0, pr = ba_from_numpy(device=dev, **ba_np)
+
+    def lm_run(n):
+        st, lam, out = st0, torch.tensor(1e-3, device=dev), []
+        for _ in range(n):
+            st, lam, c0, c1, acc = tba.lm_step(st, pr, lam,
+                                               cg_iters=BA_CG_ITERS)
+            out.append((st, lam, c0, c1, acc))
+        return out
+
+    lm = tba._LM_GRAPHS
+    cap0 = lm.captures
+    e = eager(lm_run)(3)
+    g1 = lm_run(3)
+    g2 = lm_run(3)
+    if lm.captures != cap0 + 1:
+        fail(f"compiled: ba: {lm.captures - cap0} captures for one shape")
+    flat = lambda r: [t for step in r for t in step[0] + step[1:]]
+    bit_equal = all(same(a, b) for a, b in zip(flat(e), flat(g1)))
+    if not all(same(a, b) for a, b in zip(flat(g1), flat(g2))):
+        fail("compiled: ba: two replayed runs differ")
+    cost1_rel = max(abs(float(a[3]) - float(b[3])) / abs(float(b[3]))
+                    for a, b in zip(g1, e))
+    if not bit_equal and cost1_rel > 1e-4:
+        fail(f"compiled: ba: replayed cost1 {cost1_rel} relative from eager")
+    lm_st = lm.stats()[-1]
+
+    def lm_ms(run):
+        run(BA_WARMUP)
+        sync()
+        t0 = time.perf_counter()
+        run(BA_ITERS)
+        sync()
+        return (time.perf_counter() - t0) * 1e3 / BA_ITERS
+
+    ba_ms = [lm_ms(f) for f in (eager(lm_run), lm_run, lm_run, eager(lm_run))]
+    step = lambda: tba.lm_step(st0, pr, torch.tensor(1e-3, device=dev),
+                               cg_iters=BA_CG_ITERS)
+    prof_e = device_profile(eager(step), runs=3)
+    prof_g = device_profile(step, runs=3)
+    emit("compiled", what="ba", cameras=BA_CAMS, points=BA_PTS,
+         observations=int(pr.uv.shape[0]), cg_iters=BA_CG_ITERS,
+         replay_bit_equal_to_eager=bit_equal, two_replays_bit_equal=True,
+         cost1_max_rel_diff=cost1_rel,
+         ms_per_lm_iter_eager_graph_graph_eager=ba_ms,
+         lm_iters_per_s_eager=1e3 / min(ba_ms[0], ba_ms[3]),
+         lm_iters_per_s_graph=1e3 / min(ba_ms[1], ba_ms[2]),
+         busy_ms_eager=prof_e["busy_ms"], busy_ms_graph=prof_g["busy_ms"],
+         device_launches_eager=prof_e["launches"],
+         device_launches_graph=prof_g["launches"],
+         host_launches_per_step_graph=lm_st.inputs + 1 + lm_st.outputs,
+         capture_s=lm_st.capture_s, graph_kept_bytes=lm_st.kept_bytes,
+         graph_pool_reserved_bytes=lm_st.pool_reserved_bytes,
+         nvidia_smi=smi_line)
+
+    # ---- sfm: the sequence with captured LM steps ---------------------------
+    seq_feats, seq_K, seq_centers = seq
+
+    def reconstruct():
+        cap, cap_s = lm.captures, lm.capture_s
+        sync()
+        t0 = time.perf_counter()
+        rec = tinc.reconstruct_sequence(seq_feats, seq_K, device="cuda")
+        sync()
+        s = time.perf_counter() - t0
+        if rec is None or rec.view_ids != list(range(len(seq_feats))):
+            fail(f"compiled: sfm: registered "
+                 f"{None if rec is None else rec.view_ids}")
+        return rec, dict(
+            seconds=s, captures=lm.captures - cap,
+            capture_s=lm.capture_s - cap_s, points=rec.num_points,
+            ate=ate_rmse(camera_centers(rec.R, rec.t),
+                         seq_centers[rec.view_ids]))
+
+    runs = [eager(reconstruct)(), reconstruct(), reconstruct(),
+            eager(reconstruct)()]
+    rec_of = lambda r: [np.stack(r[0].R), np.stack(r[0].t), r[0].points]
+    if not all(np.array_equal(a, b)
+               for a, b in zip(rec_of(runs[1]), rec_of(runs[2]))):
+        fail("compiled: sfm: two card runs with captured steps differ")
+    for r in runs[1:3]:
+        if not r[1]["ate"] <= 2 * JAX_SFM_ATE:
+            fail(f"compiled: sfm: ATE {r[1]['ate']}, limit "
+                 f"{2 * JAX_SFM_ATE}")
+    emit("compiled", what="sfm", frames=len(seq_feats),
+         registered=runs[1][0].num_cameras,
+         runs_eager_graph_graph_eager=[r[1] for r in runs],
+         two_graph_runs_bit_equal=True,
+         graph_run_equals_eager=all(
+             np.array_equal(a, b)
+             for a, b in zip(rec_of(runs[0]), rec_of(runs[1]))),
+         ate_limit=2 * JAX_SFM_ATE, lm_graph_bytes=tba.LM_GRAPH_BYTES,
+         lm_graphs_held=len(lm), lm_graphs_reserved_bytes=lm.reserved_bytes(),
+         lm_graph_pools=[
+             dict(shapes=[list(s) for s, _ in g.key[1][:5]],
+                  kept_bytes=g.kept_bytes,
+                  pool_reserved_bytes=g.pool_reserved_bytes,
+                  capture_s=g.capture_s, replays=g.replays)
+             for g in lm.stats()],
+         nvidia_smi=smi_line)
+
+    # ---- clear_cache returns the pools ---------------------------------------
+    del got, got2, kept, g1, g2, e, runs
+    sync()
+    held = (len(graphs), len(lm))
+    before = torch.cuda.memory_allocated()
+    reserved_before = torch.cuda.memory_reserved()
+    tpyr.run_pipeline_jit.clear_cache()
+    tba.lm_step.clear_cache()
+    after = torch.cuda.memory_allocated()
+    if len(graphs) or len(lm) or not after < before:
+        fail(f"compiled: clear_cache left {len(graphs)} + {len(lm)} graphs, "
+             f"memory_allocated {before} -> {after}")
+    emit("compiled", what="clear_cache", graphs_before=list(held),
+         memory_allocated_before=before, memory_allocated_after=after,
+         memory_reserved_before=reserved_before,
+         memory_reserved_after=torch.cuda.memory_reserved(),
+         nvidia_smi=smi_line)
+    return replay_launches
+
+
 def main():
     import torch
 
@@ -664,7 +1140,63 @@ def main():
               "needs one CUDA device", file=sys.stderr)
         sys.exit(2)
 
+    from hessgpu_tpu_torch.utils.graphs import disable_graphs
+
+    dev = torch.device("cuda", 0)
+
+    # ---- device -----------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi: {smi.stderr.strip()}")
+    smi_line = smi.stdout.strip().splitlines()[0]
+    emit("device", nvidia_smi=smi_line, kind=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda)
+
+    # Every phase up to the compiled one runs the eager route, whose wrappers
+    # count their launches (a graph replay calls no wrapper).
+    with disable_graphs():
+        ran = eager_phases(dev, smi_line)
+    replay_launches = compiled_phase(dev, smi_line, ran["same"], ran["frames"],
+                                     ran["ba_np"], ran["seq"])
+    timing = ran["timing"]
+
+    emit("blur", octave0_ms=timing["blur"]["ms"],
+         path_ms_by_detector=timing["blur"]["path_ms_by_detector"],
+         nvidia_smi=smi_line)
+
+    # ---- result -------------------------------------------------------------
+    kernels = []
+    for name, (source, replaces) in KERNEL_INFO.items():
+        t = timing[name]
+        t["launches_by_path"] = {
+            path: n[name] for path, n in ran["launches_by_path"].items()}
+        t["spatial_n4_device_ms"] = ran["spatial_kernel_ms"][name]
+        t["launches_per_default_replay"] = replay_launches[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": ran["launches_def"][name],
+            "max_abs_err": ran["errs"][name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+            "shape": t["shape"], "path_ms": t["path_ms"],
+            "path_bound_ms": t["path_bound_ms"],
+            **{k: t[k] for k in DETAIL if k in t}})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi_line, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def eager_phases(dev, smi_line):
+    """Every phase before `compiled`, on the eager route (the caller runs it
+    inside disable_graphs). Returns what the compiled phase and the result
+    line read."""
     import numpy as np
+    import torch
 
     from hessgpu_tpu_torch import (SiftConfig, describe_keypoints,
                                    detect_batch, make_plan, to_numpy_trimmed)
@@ -679,19 +1211,6 @@ def main():
     from hessgpu_tpu_torch.ops.orientation import peaks_from_votes
     from hessgpu_tpu_torch.params import gaussian_taps
     from hessgpu_tpu_torch.sfm.synthetic import texture_frame
-
-    dev = torch.device("cuda", 0)
-
-    # ---- device -----------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi: {smi.stderr.strip()}")
-    smi_line = smi.stdout.strip().splitlines()[0]
-    emit("device", nvidia_smi=smi_line, kind=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda)
 
     # ---- build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2104,8 +2623,10 @@ def main():
         env = dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep
                    + os.environ.get("PYTHONPATH", ""))
         differing = {}
+        replies = []
+        port = free_port()
         t0 = time.perf_counter()
-        with RemoteSift(port=free_port(), server_binary=server_bin,
+        with RemoteSift(port=port, server_binary=server_bin,
                         spawn_args=["-device", "cuda"], env=env) as r:
             if not r.initialize():
                 fail("server: initialize answered 0 on the card")
@@ -2114,8 +2635,14 @@ def main():
             for i in range(4):
                 if not r.run_sift_data(u8[i]):
                     fail(f"server: run_sift_data failed on frame {i}")
+                replies.append(r.get_feature_vector())
                 differing[f"run_sift_data_{i}"] = wire_vs_in_process(
-                    *r.get_feature_vector(), feats[i], f"frame {i}")
+                    *replies[i], feats[i], f"frame {i}")
+            concurrent = server_clients_at_once(r, port, u8[:2], replies[:2])
+            for i, got in enumerate(concurrent["replies"]):
+                for kp, desc in got:
+                    wire_vs_in_process(kp, desc, feats[i],
+                                       f"client {i} of two at once")
             if not r.run_sift(pgm0):
                 fail("server: run_sift failed on a PGM")
             differing["run_sift_pgm"] = wire_vs_in_process(
@@ -2168,6 +2695,8 @@ def main():
          bit_equal=not any(differing.values()), wire_matches=wire_matches,
          wire_ms_per_request=wire_ms,
          wire_ms_median=statistics.median(wire_ms),
+         two_clients_at_once={k: v for k, v in concurrent.items()
+                              if k != "replies"},
          in_process_ms=local_ms, in_process_ms_median=statistics.median(
              local_ms), nvidia_smi=smi_line)
 
@@ -2424,31 +2953,11 @@ def main():
         dev, smi_line, same, max_abs, launches_by_path, frames, ba_np,
         (seq_feats, seq_K, seq_centers), sfm_card["ate"])
 
-    emit("blur", octave0_ms=timing["blur"]["ms"],
-         path_ms_by_detector=timing["blur"]["path_ms_by_detector"],
-         nvidia_smi=smi_line)
-
-    # ---- result -------------------------------------------------------------
-    kernels = []
-    for name, (source, replaces) in KERNEL_INFO.items():
-        t = timing[name]
-        t["launches_by_path"] = {path: n[name]
-                                 for path, n in launches_by_path.items()}
-        t["spatial_n4_device_ms"] = spatial_kernel_ms[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches_def[name],
-            "max_abs_err": errs[name], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-            "bound_by": t["bound"][1], "library_ms": t["library_ms"],
-            "shape": t["shape"], "path_ms": t["path_ms"],
-            "path_bound_ms": t["path_bound_ms"],
-            **{k: t[k] for k in DETAIL if k in t}})
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(smi_line, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    return dict(same=same, frames=frames, ba_np=ba_np,
+                seq=(seq_feats, seq_K, seq_centers), timing=timing,
+                launches_by_path=launches_by_path,
+                spatial_kernel_ms=spatial_kernel_ms,
+                launches_def=launches_def, errs=errs)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,10 @@ hessgpu_tpu_torch.cli.hess), the repeatability evaluation, the SfM stack
 incremental reconstruction), the feature server, and the multi-device
 layer (hessgpu_tpu_torch.parallel: batch sharding, map-scale matching,
 row-sharded detect + describe, the distributed bundle adjustment; a mesh of
-n shards in one process on one device, or a torch.distributed group):
+n shards in one process on one device, or a torch.distributed group), and
+the JAX package's compiled entry points (run_pipeline_jit, the batch
+entry's pipeline and the LM step replay one captured CUDA graph per static
+key on the card; utils.graphs.disable_graphs runs them eagerly):
 
     from hessgpu_tpu_torch import HessianSift, SiftMatcher, SiftConfig
     sift = HessianSift(SiftConfig())       # device="cpu" to ask for the CPU
@@ -32,11 +35,12 @@ from .features import FeatureTable, to_numpy_trimmed
 from .matcher import SiftMatcher
 from .parallel.batch import detect_batch
 from .pyramid import (detect_and_describe, make_plan, run_pipeline,
-                      run_pipeline_batched)
+                      run_pipeline_batched, run_pipeline_jit)
 
 __all__ = [
     "SiftConfig", "FeatureTable", "to_numpy_trimmed", "detect_batch",
     "detect_and_describe", "make_plan", "run_pipeline",
-    "run_pipeline_batched", "describe_keypoints", "describe_rectangles",
+    "run_pipeline_batched", "run_pipeline_jit", "describe_keypoints",
+    "describe_rectangles",
     "HessianSift", "SiftMatcher",
 ]

@@ -12,13 +12,12 @@ from __future__ import annotations
 from typing import List, Optional, Union
 
 import numpy as np
-import torch
 
 from .config import SiftConfig
 from .features import FeatureTable, keypoint_buffer, to_numpy_trimmed
 from .io_image import limit_working_size, load_image
 from .pyramid import (detect_and_describe, prepare_input, resolve_device,
-                      run_pipeline)
+                      run_pipeline, run_pipeline_jit)
 from .utils.timing import StageTimer, device_stage_breakdown
 
 
@@ -106,13 +105,13 @@ class HessianSift:
 
         if self.config.tight_pyramid:
             # -tight (SiftGPU.h:188): free the storage of the old size when
-            # the working size changes. The port keeps no compiled program
-            # or plan per size; what it holds is the caching allocator's
-            # blocks.
+            # the working size changes: the captured pipeline graphs with
+            # their memory pools and the per-plan constants (as the JAX
+            # package frees its compiled executables and their buffers), and
+            # the caching allocator's free blocks.
             shp = img.shape[:2]
-            if self._last_shape is not None and shp != self._last_shape \
-                    and self.device.type == "cuda":
-                torch.cuda.empty_cache()
+            if self._last_shape is not None and shp != self._last_shape:
+                run_pipeline_jit.clear_cache()
             self._last_shape = shp
 
         with self.timer.stage("pipeline", fence=self.device):
@@ -249,7 +248,9 @@ class HessianSift:
     def device_stage_report(self, image) -> "OrderedDict":
         """Per-stage time with the reference TIMINGS_* bucket names
         (config.h:17-31): device time per stage on the card, CPU time on the
-        CPU - see utils.timing.device_stage_breakdown."""
+        CPU - see utils.timing.device_stage_breakdown. The pipeline runs
+        eagerly here (run_pipeline, not the graph run() replays): its stages
+        are record_function spans, which a graph replay does not emit."""
         img, _ = self._load(image)
         arr, plan, cfg = prepare_input(img, self.config, self.device)
         return device_stage_breakdown(run_pipeline, arr, plan, cfg,

@@ -1,11 +1,15 @@
 """Batched + multi-device detection (counterpart of
 hessgpu_tpu/parallel/batch.py).
 
-One device: the whole batch rides the kernels' batch dimension. A mesh
+One device: the whole batch rides the kernels' batch dimension, through
+_batched_pipeline (on the card one captured CUDA graph per plan,
+configuration and batch size, pyramid.run_pipeline_jit). A mesh
 (parallel/distributed.py) splits the batch into contiguous blocks, one per
-shard, each run through the same pipeline - the counterpart of the JAX
-package's shard_map over a device mesh, and of the reference's one process
-per GPU. Shapes are bucketed: images of one (H, W) bucket batch together.
+shard, each run through the same pipeline (one graph for B / n) - the
+counterpart of the JAX package's shard_map over a device mesh, and of the
+reference's one process per GPU. The all_gather of the shards' tables stays
+outside the graphs. Shapes are bucketed: images of one (H, W) bucket batch
+together.
 """
 
 from __future__ import annotations
@@ -17,9 +21,18 @@ import torch
 
 from ..config import SiftConfig
 from ..features import FeatureTable
-from ..pyramid import make_plan, resolve_device, run_pipeline_batched
+from ..pyramid import (PipelinePlan, make_plan, resolve_device,
+                       run_pipeline_batched, run_pipeline_jit)
 from .distributed import (DeviceMesh, all_gather, device_mesh, local_mesh,
                           mesh_shards)
+
+
+def _batched_pipeline(imgs: torch.Tensor, plan: PipelinePlan,
+                      cfg: SiftConfig) -> FeatureTable:
+    """Full pipeline over a batch of grayscale images (B, H, W): the table of
+    run_pipeline_jit, the counterpart of the JAX package's jitted
+    _batched_pipeline."""
+    return run_pipeline_jit(imgs, plan, cfg)[0]
 
 
 def detect_batch(images, cfg: Optional[SiftConfig] = None,
@@ -38,8 +51,8 @@ def detect_batch(images, cfg: Optional[SiftConfig] = None,
     the full batched table back in batch order (all_gather). mesh=None runs
     the whole batch as one.
     device="cuda" without a card raises.
-    plain=True runs the kernels' plain PyTorch versions instead (a check,
-    not a fallback).
+    plain=True runs the kernels' plain PyTorch versions instead, eagerly (a
+    check, not a fallback).
     Returns a batched FeatureTable (leading dim B) on `device`: N slots per
     frame, N = global_feature_cap, or expansion_factor times that when a
     keypoint may get several orientations; desc (B, N, descriptor_dim).
@@ -54,14 +67,17 @@ def detect_batch(images, cfg: Optional[SiftConfig] = None,
                          f"{tuple(arr.shape)}")
     b, h, w = arr.shape
     plan = make_plan(h, w, cfg)
+    if plain:
+        run = lambda x: run_pipeline_batched(x, plan, cfg, plain=True)[0]
+    else:
+        run = lambda x: _batched_pipeline(x, plan, cfg)
     if mesh is None:
-        return run_pipeline_batched(arr, plan, cfg, plain)[0]
+        return run(arr)
     if b % mesh.size:
         raise ValueError(f"detect_batch: batch {b} is not divisible by the "
                          f"mesh's {mesh.size} shards")
     bl = b // mesh.size
-    parts = [run_pipeline_batched(arr[s * bl:(s + 1) * bl], plan, cfg,
-                                  plain)[0] for s in mesh_shards(mesh)]
+    parts = [run(arr[s * bl:(s + 1) * bl]) for s in mesh_shards(mesh)]
     return FeatureTable(*(
         all_gather(torch.stack(leaves), mesh).flatten(0, 1)
         for leaves in zip(*parts)))

@@ -12,11 +12,20 @@ tensor code with static shapes.
 Every SiftConfig runs, both detector personalities, the upsampled first
 octave (first_octave < 0, DoG) and both pyramid schedules (conv_mode "chain"
 and "direct").
+
+run_pipeline_jit is the counterpart of the JAX package's jitted entry: on a
+CUDA tensor it replays one captured CUDA graph per (plan, configuration,
+batch size, device) (utils/graphs.py), which launches the same kernels in
+the same order as run_pipeline_batched, the eager body it captures. The
+values the pipeline would copy from the host on every call (the global
+table's level ids, the key levels' sigmas) are device constants made once
+per (plan, configuration, device), before any capture.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, NamedTuple, Tuple
 
@@ -39,6 +48,7 @@ from .ops.hessian import _grad_rot
 from .ops.resize import rgb_to_gray, to_float, upsample
 from .params import (gaussian_taps, max_features_per_level, octave_shapes,
                      required_octaves)
+from .utils.graphs import GraphCache, graphs_enabled
 
 TWO_PI = 2.0 * math.pi
 
@@ -74,6 +84,57 @@ def make_plan(height: int, width: int, cfg: SiftConfig) -> PipelinePlan:
             ecaps.append(ecap)
     return PipelinePlan(height, width, noct, tuple(shapes), tuple(caps),
                         tuple(ecaps))
+
+
+class _CfgKey:
+    """Hashable wrapper so SiftConfig (mutable dataclass) can key a cache:
+    equal when every field is equal."""
+
+    def __init__(self, cfg: SiftConfig):
+        self.cfg = cfg
+        self._key = tuple(sorted(
+            (k, v) for k, v in cfg.__dict__.items()
+        ))
+
+    def __hash__(self):
+        return hash(self._key)
+
+    def __eq__(self, other):
+        return isinstance(other, _CfgKey) and self._key == other._key
+
+
+class _PlanConstants(NamedTuple):
+    """Device constants of one (plan, configuration, device)."""
+    level_ids: torch.Tensor    # i32 (sum of per-octave NK * cap,): the level
+    #                            id of each slot of the concatenated lists
+    key_sigmas: torch.Tensor   # f32 (NK,): the key levels' sigmas
+
+
+def _plan_constants(plan: PipelinePlan, cfg: SiftConfig,
+                    device) -> _PlanConstants:
+    """The pipeline's per-plan constants on `device`, made at the first call
+    of a key and reused after (never rebuilt inside a graph capture, where a
+    copy from host memory raises)."""
+    return _make_plan_constants(plan, _CfgKey(cfg), torch.device(device))
+
+
+# 64 kept at once, the least recently used dropped first; a captured graph
+# keeps its own alive (run_pipeline_jit).
+@functools.lru_cache(maxsize=64)
+def _make_plan_constants(plan: PipelinePlan, key: _CfgKey,
+                         device: torch.device) -> _PlanConstants:
+    p = key.cfg.scale_params()
+    nk = len(p.key_levels)
+    # the global table's input: per octave an (NK, cap) block, level id
+    # octave * NK + key index (level-major, as _globalize concatenates)
+    lid = np.concatenate([
+        np.repeat(o * nk + np.arange(nk), plan.level_caps[o * nk])
+        for o in range(plan.num_octaves)])
+    return _PlanConstants(
+        level_ids=torch.as_tensor(lid, dtype=torch.int32, device=device),
+        key_sigmas=torch.tensor(
+            [p.key_level_sigma(kl) for kl in p.key_levels],
+            dtype=torch.float32, device=device))
 
 
 def resolve_device(device) -> torch.device:
@@ -232,23 +293,18 @@ class GlobalTable(NamedTuple):
         return self.valid.sum(dim=-1, dtype=torch.int32)
 
 
-def _globalize(lists: List[FeatureList], cap: int) -> GlobalTable:
+def _globalize(lists: List[FeatureList], cap: int,
+               level_ids: torch.Tensor) -> GlobalTable:
     """Concatenate per-octave blocked lists ((B, NK, cap_o) leaves) and
     compact into one global table, level-major (= the reference's output
-    order). Level ids per slot are static."""
+    order). level_ids: the static level id of each concatenated slot
+    (_PlanConstants.level_ids)."""
     def cat(field):
         return torch.cat([getattr(fl, field).flatten(-2) for fl in lists],
                          dim=-1)
 
-    lid_np = []
-    base = 0
-    for fl in lists:
-        nk, c = fl.valid.shape[-2:]
-        lid_np.append(np.repeat(base + np.arange(nk), c))
-        base += nk
     valid = cat("valid")
-    lid = torch.as_tensor(np.concatenate(lid_np), dtype=torch.int32,
-                          device=valid.device).expand(valid.shape)
+    lid = level_ids.expand(valid.shape)
     _, outs, slot_valid = compact_sorted(
         valid,
         [cat("x"), cat("y"), cat("sigma"), cat("response"), cat("ftype"),
@@ -417,11 +473,9 @@ def detect_from_octaves(octaves: List[torch.Tensor], plan: PipelinePlan,
     p = cfg.scale_params()
     sigma_step = p.sigmak
     nkey = len(p.key_levels)
-    device = octaves[0].device
+    consts = _plan_constants(plan, cfg, octaves[0].device)
 
     # ---- detection + per-octave compaction ----------------------------------
-    sigmas = torch.tensor([p.key_level_sigma(kl) for kl in p.key_levels],
-                          dtype=torch.float32, device=device)
     all_lists: List[FeatureList] = []
     grads: List[torch.Tensor] = []
     rots: List[torch.Tensor] = []
@@ -432,7 +486,8 @@ def detect_from_octaves(octaves: List[torch.Tensor], plan: PipelinePlan,
             rots.append(rot)
         with record_function("GENERATE_FEATURE_LIST"):
             all_lists.append(compact_octave_keypoints(
-                maps, sigmas, sigma_step, plan.level_caps[o * nkey]))
+                maps, consts.key_sigmas, sigma_step,
+                plan.level_caps[o * nkey]))
 
     # ---- global table ---------------------------------------------------------
     # per-(octave, level) counts and the pre-reduction total for the -v
@@ -440,7 +495,7 @@ def detect_from_octaves(octaves: List[torch.Tensor], plan: PipelinePlan,
     G = min(cfg.global_feature_cap, sum(plan.level_caps))
     with record_function("GENERATE_FEATURE_LIST"):
         level_counts = torch.cat([fl.count() for fl in all_lists], dim=-1)
-        table = _globalize(all_lists, G)
+        table = _globalize(all_lists, G, consts.level_ids)
         pre_count = table.count()
 
     # ---- truncation (reference LimitFeatureCount, SiftPyramid.cpp:201-278)
@@ -521,13 +576,56 @@ def pipeline_from_octaves(octaves: List[torch.Tensor], plan: PipelinePlan,
     return out, aux
 
 
+def _unbatch(result):
+    table, aux = result
+    return (FeatureTable(*(a[0] for a in table)),
+            {k: v[0] for k, v in aux.items()})
+
+
 def run_pipeline(img: torch.Tensor, plan: PipelinePlan, cfg: SiftConfig,
                  plain: bool = False):
     """Detect + describe for one grayscale image (H, W) f32 in [0, 1]: the
     batched pipeline at B = 1 with the batch dimension stripped."""
-    table, aux = run_pipeline_batched(img[None], plan, cfg, plain)
-    return (FeatureTable(*(a[0] for a in table)),
-            {k: v[0] for k, v in aux.items()})
+    return _unbatch(run_pipeline_batched(img[None], plan, cfg, plain))
+
+
+# The bytes the captured pipelines may reserve, the least recently used
+# dropped first. One graph's pool holds its call's buffers (PERF.md,
+# chip_smoke.py's compiled phase, for 640x480 at B=16 and B=1 and for a
+# 3200-pixel frame).
+PIPELINE_GRAPH_BYTES = 4 << 30
+_PIPELINE_GRAPHS = GraphCache(PIPELINE_GRAPH_BYTES)
+
+
+def run_pipeline_jit(imgs: torch.Tensor, plan: PipelinePlan,
+                     cfg: SiftConfig):
+    """Detect + describe through one compiled program per (plan, cfg, batch,
+    device): the counterpart of the JAX package's jitted run_pipeline_jit.
+
+    imgs: (H, W) f32, with run_pipeline's result, or (B, H, W), with
+    run_pipeline_batched's. On a CUDA tensor the call replays the CUDA graph
+    of run_pipeline_batched for its key, captured at the key's first call,
+    and returns fresh tensors; on a CPU tensor, and inside
+    utils.graphs.disable_graphs(), it is run_pipeline_batched itself.
+    run_pipeline_jit.clear_cache() frees the graphs and their memory."""
+    if imgs.ndim == 2:
+        return _unbatch(run_pipeline_jit(imgs[None], plan, cfg))
+    if not imgs.is_cuda or not graphs_enabled():
+        return run_pipeline_batched(imgs, plan, cfg)
+    # made outside the capture; the graph keeps its function, and the
+    # function these tensors, for as long as it replays them
+    consts = _plan_constants(plan, cfg, imgs.device)
+    return _PIPELINE_GRAPHS(
+        (plan, _CfgKey(cfg)),
+        lambda x, _consts=consts: run_pipeline_batched(x, plan, cfg), imgs)
+
+
+def _clear_pipeline_cache() -> None:
+    _PIPELINE_GRAPHS.clear()
+    _make_plan_constants.cache_clear()
+
+
+run_pipeline_jit.clear_cache = _clear_pipeline_cache
 
 
 def prepare_input(img_np: np.ndarray, cfg: SiftConfig, device="cuda"):
@@ -556,6 +654,6 @@ def prepare_input(img_np: np.ndarray, cfg: SiftConfig, device="cuda"):
 def detect_and_describe(img_np: np.ndarray, cfg: SiftConfig, device="cuda"):
     """Host entry: NumPy image (H, W) or (H, W, C), uint8 or float.
 
-    Returns (FeatureTable, aux) on `device` - see run_pipeline_batched."""
+    Returns (FeatureTable, aux) on `device` - see run_pipeline_jit."""
     arr, plan, cfg = prepare_input(img_np, cfg, device)
-    return run_pipeline(arr, plan, cfg)
+    return run_pipeline_jit(arr, plan, cfg)

@@ -23,6 +23,11 @@ package asks XLA for Precision.HIGHEST: the products feed a Krylov solver,
 which reduced precision stalls. The PCG runs a fixed number of steps with
 its scalars on the device, so a step syncs with the host nowhere.
 
+On the card lm_step replays one captured CUDA graph per problem and state
+shape, cg_iters and fix_first_cam (utils/graphs.py), the counterpart of the
+JAX package's jitted lm_step: the ~2800 launches of a step leave the host as
+one. bundle_adjust reads the costs back once per step, outside the graph.
+
 Segment sums (the transposes of the gathers) go through index_put_ with
 accumulate=True, which PyTorch runs on the card as a sort by index and an
 ordered sum of each run: a step is bit-for-bit repeatable there.
@@ -40,6 +45,7 @@ from typing import NamedTuple, Tuple
 import torch
 from torch.func import jacfwd, vmap
 
+from ..utils.graphs import GraphCache, graphs_enabled
 from ..utils.precision import full_f32_matmul
 
 
@@ -196,14 +202,36 @@ def huber_weights(state: BAState, prob: BAProblem, delta: float):
     return robust_weights(state, prob, delta, loss="huber")
 
 
+# The bytes the captured LM steps may reserve, the least recently used
+# dropped first. An incremental reconstruction meets a new problem shape at
+# every BA (14 on chip_smoke.py's 40-frame sequence); PERF.md gives the
+# pools (chip_smoke.py's compiled phase): all of that sequence's fit.
+LM_GRAPH_BYTES = 2 << 30
+_LM_GRAPHS = GraphCache(LM_GRAPH_BYTES)
+
+
 def lm_step(state: BAState, prob: BAProblem, lam: torch.Tensor,
             cg_iters: int = 30, fix_first_cam: bool = True):
     """One Levenberg-Marquardt step. Returns (new_state, new_lam, cost,
     new_cost, accepted), the last four 0-d tensors on the state's device.
 
-    lam: 0-d float32 tensor on the state's device."""
+    lam: 0-d float32 tensor on the state's device. On the card the step
+    replays the CUDA graph of _lm_step for (the shapes and dtypes of state,
+    prob and lam, cg_iters, fix_first_cam), captured at its first call with
+    TF32 off, and returns fresh tensors; on the CPU, and inside
+    utils.graphs.disable_graphs(), it runs _lm_step. lm_step.clear_cache()
+    frees the graphs."""
     with full_f32_matmul():
+        if state.R.is_cuda and graphs_enabled():
+            return _LM_GRAPHS(
+                (cg_iters, fix_first_cam),
+                lambda st, pr, lm: _lm_step(st, pr, lm, cg_iters,
+                                            fix_first_cam),
+                state, prob, lam)
         return _lm_step(state, prob, lam, cg_iters, fix_first_cam)
+
+
+lm_step.clear_cache = _LM_GRAPHS.clear
 
 
 def _lm_step(state, prob, lam, cg_iters, fix_first_cam, seg=segment_sum,

@@ -9,6 +9,7 @@ calls block_until_ready.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import OrderedDict
 from typing import Dict
@@ -167,3 +168,22 @@ def device_stage_breakdown(fn, *args, device="cuda", runs: int = 5):
     """Per-stage milliseconds of one pipeline call fn(*args), averaged over
     `runs` calls: device_profile(...)["stages"]."""
     return device_profile(fn, *args, device=device, runs=runs)["stages"]
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """A torch.profiler trace of the block, written to
+    log_dir/trace.json (a chrome trace: chrome://tracing or Perfetto).
+    Host activity, and the device's kernels and copies when CUDA is
+    available. Yields log_dir."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield log_dir
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -7,8 +7,10 @@
 Runs hessgpu_tpu_torch.detect_batch on seeded 640x480 textures under
 torch.profiler, with the default SiftConfig() (orientations, descriptors) or
 with SiftConfig(compute_descriptors=False, fixed_orientation=True) (sd-ofix),
-and prints one JSON object: wall time per batch, device-busy time per batch
-(the summed duration of the device work), the device's idle share, device
+through the eager route (a captured graph's replay emits no
+record_function span), and prints one JSON object: wall time per batch,
+device-busy time per batch (the summed duration of the device work), the
+device's idle share, device
 time by kernel name (the port's own kernels apart from PyTorch's), the device
 time inside each pipeline span (BUILD_PYRAMID ... COMPUTE_DESCRIPTORS, OTHER,
 TOTAL: hessgpu_tpu_torch.utils.timing.device_profile, the accounting that
@@ -47,6 +49,7 @@ def main():
         sys.exit("needs a CUDA device")
     from hessgpu_tpu_torch import SiftConfig, detect_batch
     from hessgpu_tpu_torch.sfm.synthetic import texture_frame
+    from hessgpu_tpu_torch.utils.graphs import disable_graphs
     from hessgpu_tpu_torch.utils.timing import device_profile
 
     smi = subprocess.run(
@@ -65,10 +68,11 @@ def main():
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    for _ in range(3):
-        one()
-    off = [one() for _ in range(args.iters)]
-    prof = device_profile(detect_batch, imgs, cfg, runs=args.iters)
+    with disable_graphs():
+        for _ in range(3):
+            one()
+        off = [one() for _ in range(args.iters)]
+        prof = device_profile(detect_batch, imgs, cfg, runs=args.iters)
 
     own = ("blur_kernel", "chain_kernel", "downsample2",
            "detect_kernel", "orientation_kernel", "descriptor_kernel")

@@ -37,6 +37,7 @@ from hessgpu_tpu_torch.ops.descriptor import finalize_descriptors
 from hessgpu_tpu_torch.ops.orientation import peaks_from_votes
 from hessgpu_tpu_torch.params import gaussian_taps
 from hessgpu_tpu_torch.sfm.synthetic import texture_frame
+from hessgpu_tpu_torch.utils.graphs import disable_graphs
 from test_torch_blur_tiling import _segment_rows
 
 pytestmark = pytest.mark.gpu
@@ -419,7 +420,8 @@ def test_default_main_path_goes_through_the_kernels(card, detector):
     cfg = SiftConfig(detector=detector)
     n_oct = make_plan(160, 200, cfg).num_octaves
     reset_launch_counts()
-    got = detect_batch(imgs, cfg)
+    with disable_graphs():      # the eager route: its wrappers count launches
+        got = detect_batch(imgs, cfg)
     assert launch_counts() == {"blur": 1, "octave_chain": n_oct,
                                "downsample2": 0,
                                "detect_octave": n_oct, "orientation": 1,
@@ -443,7 +445,8 @@ def test_main_path_goes_through_the_kernels(card, detector):
     cfg = SiftConfig(detector=detector, **SLICE)
     n_oct = make_plan(160, 200, cfg).num_octaves
     reset_launch_counts()
-    got = detect_batch(imgs, cfg)
+    with disable_graphs():      # the eager route: its wrappers count launches
+        got = detect_batch(imgs, cfg)
     assert launch_counts() == {"blur": 1, "octave_chain": n_oct,
                                "downsample2": 0,
                                "detect_octave": n_oct, "orientation": 0,
@@ -499,7 +502,8 @@ def test_direct_main_path_goes_through_the_kernels(card, detector):
     n_oct = make_plan(160, 200, cfg).num_octaves
     levels = 4 if detector == "hessian" else 5
     reset_launch_counts()
-    got = detect_batch(imgs, cfg)
+    with disable_graphs():      # the eager route: its wrappers count launches
+        got = detect_batch(imgs, cfg)
     assert launch_counts() == {"blur": 1 + levels * n_oct, "octave_chain": 0,
                                "downsample2": n_oct - 1,
                                "detect_octave": n_oct, "orientation": 0,

@@ -36,6 +36,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import hessgpu_tpu_torch.utils.timing, hessgpu_tpu_torch.utils.viz\n"
         "import hessgpu_tpu_torch.cli.hess\n"
         "import hessgpu_tpu_torch.utils.precision\n"
+        "import hessgpu_tpu_torch.utils.graphs\n"
         "import hessgpu_tpu_torch.sfm.ba, hessgpu_tpu_torch.sfm.twoview\n"
         "import hessgpu_tpu_torch.sfm.posegraph\n"
         "import hessgpu_tpu_torch.sfm.incremental, hessgpu_tpu_torch.sfm.io\n"
