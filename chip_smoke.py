@@ -142,11 +142,33 @@ wrapper counts its launches. Phases, one JSON line each:
              call's peak memory, ms in turns; three replayed lm_steps at
              bench_ba's size against eager
              (bit-equal, else cost1 within 1e-4 relative and two replays
-             bit-equal), LM iterations/s in turns; the sfm sequence
-             reconstructed eager, with captured steps twice, eager (40 of
-             40, ATE within the sfm limit, the two graph runs bit-equal;
-             seconds, captures and their seconds, the LM graphs' pools);
-             clear_cache() returning the pools
+             bit-equal), LM iterations/s in turns; then the boundaries past
+             those (compiled_boundaries), one line each, every call of the
+             graph route bit-equal to the eager route, with ms in turns
+             over shorter windows, host launches a call (the profiler's
+             runtime calls), device launches and busy ms, captures, eager
+             first calls, capture seconds, pool bytes, segments: describe
+             (frame 0's keypoints computing theta and given theta; the
+             bucket's first n slots equal to an unpadded eager run),
+             describe kernels (describe_keypoints' own graph, captured
+             with each stage's output kept: blur, chain, its decimation
+             epilogue, detect, orientation and descriptor inside the
+             replay bit-equal to their eager launches), rectangles,
+             describe threads (two threads, 40 calls each, through one
+             graph), match (2000 x 1948 of the main path's descriptors in
+             the 2048 x 2048 bucket, mutual and not; the SiftMatcher's ms
+             in turns), guided (the gate and the gated match), ransac_f
+             (the sequence's first pair with its JAX draws), pnp (300
+             seeded correspondences in a bucket of 512), posegraph (a
+             drifted 12-camera loop, 20 steps); the sfm sequence in
+             SFM_TURNS, each run a first pass (every cache it uses emptied
+             first): eager, then with the pipeline's and the LM step's
+             graphs alone ("base") and with every graph ("all") in turns
+             (40 of 40, ATE within the sfm limit, every run bit-equal to
+             the eager one; seconds, captures, eager first calls,
+             replays, repeat share and pools by cache; the median of the
+             "all" runs over the "base" runs' median);
+             every cache's clear_cache() returning the pools
   blur       the octave-0 blur's ms beside the card's name and power limit
   {"kernels": [...]}   one entry per kernel: launches on the main path,
              error, times, bound; path_ms and path_bound_ms sum a batch's
@@ -273,6 +295,22 @@ COMPILED_WINDOW_S, COMPILED_WINDOWS = 1.0, 3
 # process), and requests each of two server clients sends at once
 THREAD_ROUNDS = 100
 SERVER_ROUNDS = 30
+# the boundaries past the pipeline: ms per call in turns over shorter
+# windows; the matcher at MATCH_N features of the main path's frames (off
+# the bucket, 2048 x 2048, so that its padding is part of the check); PnP over PNP_N seeded correspondences (a fifth moved 20-60 px)
+# in a bucket of 512; the pose graph over a drifted loop of PG_VIEWS
+BOUNDARY_WINDOW_S = 0.2
+# the sfm sequence in the compiled phase: eager, with the pipeline's and the
+# LM step's graphs alone ("base"), with every graph ("all"), in turns. Every
+# run is a first pass: each starts with every cache the sequence uses
+# emptied, as a process that reconstructs one sequence starts, so a run
+# pays its own captures (one run's seconds move by a second between runs on
+# a shared host).
+SFM_TURNS = ("eager", "base", "all", "all", "base", "base", "all", "all",
+             "base")
+MATCH_N = (2000, 1948)
+PNP_N, PNP_SEED = 300, 5
+PG_VIEWS = 12
 # the largest frame -maxd's default (3200) lets through, 4:3: one graph's
 # pool at that size against the eager call's peak
 BIG_HEIGHT, BIG_WIDTH = 2400, 3200
@@ -755,6 +793,336 @@ def mesh_phases(dev, smi_line, same, max_abs, launches_by_path, frames,
     return kernel_ms
 
 
+def compiled_boundaries(dev, smi_line, same, frames, seq, eager, sync,
+                        in_turns):
+    """The compiled phase's boundaries past the pipeline and the LM step:
+    the keypoint re-entry program (describe_keypoints, describe_rectangles),
+    the matcher (_match_core, _guided_gate), the RANSAC cores (fundamental,
+    PnP) and the pose-graph step, each replayed against its eager route.
+    Returns the kernel launches that the re-entry graphs hold, by path."""
+    import numpy as np
+    import torch
+
+    from hessgpu_tpu_torch import (SiftConfig, SiftMatcher,
+                                   describe_keypoints, describe_rectangles,
+                                   detect_and_describe, to_numpy_trimmed)
+    from hessgpu_tpu_torch import describe as tdesc
+    from hessgpu_tpu_torch import matcher as tm
+    from hessgpu_tpu_torch.ops.cuda import patch as kpatch
+    from hessgpu_tpu_torch.sfm import incremental as tinc
+    from hessgpu_tpu_torch.sfm import posegraph as tpg
+    from hessgpu_tpu_torch.sfm import twoview as ttv
+    from hessgpu_tpu_torch.sfm.ba import so3_exp
+    from hessgpu_tpu_torch.utils.graphs import disable_graphs
+    from hessgpu_tpu_torch.utils.timing import device_profile
+
+    def equal(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(equal(a[k], b[k]) for k in a)
+        if isinstance(a, (tuple, list)):
+            return len(a) == len(b) and all(equal(x, y) for x, y in zip(a, b))
+        if isinstance(a, torch.Tensor):
+            return same(a, b)
+        return np.array_equal(a, b)
+
+    def boundary(what, cache, call, calls=3, **extra):
+        """call() eagerly, then `calls` times through `cache` (every result
+        bit-equal to the eager one); ms in turns; host launches a call (the
+        profiler's runtime calls); the key's graph."""
+        want = eager(call)()
+        cap0, eager0 = cache.captures, cache.eager_calls
+        for i in range(calls):
+            if not equal(call(), want):
+                fail(f"compiled: {what}: call {i + 1} through the graph "
+                     "differs from the eager route")
+        st = cache.stats()[-1]        # the most recently used: this key's
+        ms = in_turns(eager(call), call, BOUNDARY_WINDOW_S)
+        prof_e = device_profile(eager(call), runs=3)
+        prof_g = device_profile(call, runs=3)
+        report = dict(
+            what=what, bit_equal_to_eager=True, calls_checked=calls,
+            ms_per_call_eager_graph_graph_eager=ms,
+            host_launches_per_call_eager=prof_e["host_launches"],
+            host_launches_per_call_graph=prof_g["host_launches"],
+            device_launches_eager=prof_e["launches"],
+            device_launches_graph=prof_g["launches"],
+            busy_ms_eager=prof_e["busy_ms"], busy_ms_graph=prof_g["busy_ms"],
+            eager_first_calls=cache.eager_calls - eager0,
+            captures=cache.captures - cap0, capture_at=st.capture_at,
+            capture_s=st.capture_s, graph_kept_bytes=st.kept_bytes,
+            graph_pool_reserved_bytes=st.pool_reserved_bytes,
+            segments=st.segments, eager_between=st.eager_between,
+            graph_kernel_launches=st.launches, **extra)
+        return want, report
+
+    cfg = SiftConfig()
+    img, img1 = frames[0], frames[1]
+    f0 = to_numpy_trimmed(detect_and_describe(img, cfg)[0])
+    keys = np.stack([f0["x"], f0["y"], f0["sigma"], f0["theta"]], axis=1)
+    first = np.ones(len(keys), bool)          # first orientation a keypoint
+    first[1:] = (keys[1:, :3] != keys[:-1, :3]).any(axis=1)
+    launches_by_path = {}
+
+    # ---- keypoint re-entry -------------------------------------------------
+    describe_keypoints.clear_cache()
+    for case, k, ho in (("computing theta", keys[first, :3], False),
+                        ("given theta", keys, True)):
+        want, rep = boundary(
+            "describe", tdesc._DESCRIBE_GRAPHS,
+            lambda k=k, ho=ho: describe_keypoints(img, k, has_orientation=ho))
+        # the bucket's first n slots equal an unpadded eager run
+        arr, plan, pcfg = tdesc.prepare_input(img, cfg, dev)
+        kt = k[:, 3] if ho else np.zeros(len(k), np.float32)
+        with disable_graphs():
+            theta, desc = tdesc._describe_padded(
+                arr, plan, pcfg, k[:, 0], k[:, 1], k[:, 2], kt, ho, len(k))
+        if not np.array_equal(desc, want["desc"]) or (not ho and not \
+                np.array_equal(np.mod(tdesc.TWO_PI - theta, tdesc.TWO_PI),
+                               want["theta"])):
+            fail(f"compiled: describe, {case}: the padded list differs "
+                 "from the unpadded one")
+        launches_by_path[f"describe_replay_{'given' if ho else 'computed'}"
+                         "_theta"] = rep["graph_kernel_launches"]
+        emit("compiled", case=case, keypoints=len(k),
+             bucket=tdesc._bucket(len(k)), padded_equals_unpadded=True,
+             **rep, nvidia_smi=smi_line)
+
+    # the five kernels inside the entry's own replay, each against its eager
+    # launch: describe_keypoints' graph of _describe_all, captured with each
+    # stage's output kept (a tensor the capture made and that stays
+    # referenced keeps its place in the pool, and every replay rewrites it),
+    # against the same entry inside disable_graphs()
+    n = int(first.sum())
+    cap = tdesc._bucket(n)
+
+    def describe_stages():
+        rec = {}
+        build_pyramid, gradients = tdesc._build_pyramid, \
+            tdesc.key_level_gradients
+        orientation, descriptor = kpatch.orientation, kpatch.descriptor
+
+        def pyramid(*a, **kw):
+            octaves = build_pyramid(*a, **kw)
+            rec.update(blur=octaves[0][:, 0],
+                       octave_chain=[o[:, 1:] for o in octaves],
+                       downsample2=[o[:, 0] for o in octaves[1:]],
+                       detect_octave=[])
+            return octaves
+
+        def grad(*a, **kw):
+            out = gradients(*a, **kw)
+            rec["detect_octave"].append(out)
+            return out
+
+        def orient(*a, **kw):
+            out = orientation(*a, **kw)
+            rec["orientation"] = out.thetas
+            return out
+
+        def desc(*a, **kw):
+            rec["descriptor"] = descriptor(*a, **kw)
+            return rec["descriptor"]
+
+        tdesc._build_pyramid, tdesc.key_level_gradients = pyramid, grad
+        kpatch.orientation, kpatch.descriptor = orient, desc
+        try:
+            out = describe_keypoints(img, keys[first, :3],
+                                     has_orientation=False)
+        finally:
+            tdesc._build_pyramid, tdesc.key_level_gradients = \
+                build_pyramid, gradients
+            kpatch.orientation, kpatch.descriptor = orientation, descriptor
+        return rec, out
+
+    describe_keypoints.clear_cache()
+    with disable_graphs():
+        want, want_out = describe_stages()
+    cap0 = tdesc._DESCRIBE_GRAPHS.captures
+    got, got_out = describe_stages()              # captured, replayed once
+    if tdesc._DESCRIBE_GRAPHS.captures != cap0 + 1:
+        fail("compiled: describe kernels: the entry captured no graph")
+    leaves = lambda a: [a] if isinstance(a, torch.Tensor) else [  # noqa
+        t for x in a for t in leaves(x)]
+    kernel_vs_eager = {}
+    for k in want:
+        if not equal(got[k], want[k]):
+            fail(f"compiled: describe: the {k} kernel inside the replay "
+                 "differs from its eager launch")
+        kernel_vs_eager[k] = max(
+            float((a.double() - b.double()).abs().max())
+            for a, b in zip(leaves(got[k]), leaves(want[k])))
+    if not equal(got_out, want_out):
+        fail("compiled: describe kernels: the entry's outputs differ")
+    del got, want
+    describe_keypoints.clear_cache()
+    emit("compiled", what="describe kernels", keypoints=n, bucket=cap,
+         graph="describe_keypoints' own (_describe_all)",
+         replay_max_abs_vs_eager=kernel_vs_eager, nvidia_smi=smi_line)
+
+    rects = np.stack([keys[first, 0] - 3 * keys[first, 2],
+                      keys[first, 1] - 2 * keys[first, 2],
+                      6 * keys[first, 2], 4 * keys[first, 2]],
+                     axis=1).astype(np.float32)
+    _, rep = boundary("rectangles", tdesc._DESCRIBE_GRAPHS,
+                      lambda: describe_rectangles(img, rects))
+    launches_by_path["rectangles_replay"] = rep["graph_kernel_launches"]
+    emit("compiled", rectangles=len(rects), **rep, nvidia_smi=smi_line)
+
+    # two threads (the server's clients) describe their own frames through
+    # one re-entry graph
+    f1 = to_numpy_trimmed(detect_and_describe(img1, cfg)[0])
+    keys1 = np.stack([f1["x"], f1["y"], f1["sigma"], f1["theta"]], axis=1)
+    m = min(len(keys), len(keys1))
+    inputs = [(img, keys[:m]), (img1, keys1[:m])]
+    wants = [eager(describe_keypoints)(*x) for x in inputs]
+    describe_keypoints(*inputs[0])
+    caps0 = tdesc._DESCRIBE_GRAPHS.captures
+    wrong, errors = [0, 0], []
+    start = threading.Barrier(2)
+
+    def client(i):
+        try:
+            start.wait()
+            for _ in range(40):
+                if not equal(describe_keypoints(*inputs[i]), wants[i]):
+                    wrong[i] += 1
+        except Exception as e:              # noqa: BLE001
+            errors.append(repr(e))
+
+    ts = [threading.Thread(target=client, args=(i,)) for i in (0, 1)]
+    for th in ts:
+        th.start()
+    for th in ts:
+        th.join()
+    if wrong != [0, 0] or errors or \
+            tdesc._DESCRIBE_GRAPHS.captures != caps0:
+        fail(f"compiled: describe, two threads: wrong {wrong}, {errors}")
+    emit("compiled", what="describe threads", calls=40, wrong=wrong,
+         graphs=len(tdesc._DESCRIBE_GRAPHS),
+         graphs_reserved_bytes=tdesc._DESCRIBE_GRAPHS.reserved_bytes(),
+         describe_graph_bytes=tdesc.DESCRIBE_GRAPH_BYTES,
+         nvidia_smi=smi_line)
+
+    # ---- the matcher: 2048 x 2048 features of the main path's frames -------
+    tm._match_core.clear_cache()
+    feats = [to_numpy_trimmed(detect_and_describe(f, cfg)[0])
+             for f in frames[:16]]
+    desc = np.concatenate([f["desc"] for f in feats])
+    loc = np.concatenate([np.stack([f["x"], f["y"]], 1) for f in feats])
+    q = torch.as_tensor(tm.quantize_descriptors(desc), device=dev)
+    n1, n2 = MATCH_N
+    d1, d2 = q[:n1], q[n1 // 2: n1 // 2 + n2]
+    if len(d2) != n2:
+        fail(f"compiled: match: {len(q)} features, {n1 // 2 + n2} needed")
+    ones1 = torch.ones(n1, dtype=torch.bool, device=dev)
+    ones2 = torch.ones(n2, dtype=torch.bool, device=dev)
+    for mutual in (True, False):
+        want, rep = boundary("match", tm._MATCH_GRAPHS, lambda mu=mutual:
+                             tm._match_core(d1, d2, ones1, ones2, 0.7, 0.8,
+                                            mu))
+        sm = SiftMatcher()
+        sm.set_descriptors(0, d1.cpu().numpy())
+        sm.set_descriptors(1, d2.cpu().numpy())
+        emit("compiled", n1=n1, n2=n2, bucket=[tm._bucket(n1),
+                                               tm._bucket(n2)],
+             mutual_best=mutual,
+             matches=int((want >= 0).sum()), **rep,
+             sift_matcher_ms_eager_graph_graph_eager=in_turns(
+                 eager(lambda: sm.get_sift_match(mutual_best=mutual)),
+                 lambda: sm.get_sift_match(mutual_best=mutual),
+                 BOUNDARY_WINDOW_S),
+             nvidia_smi=smi_line)
+    l1 = torch.as_tensor(loc[:n1], dtype=torch.float32, device=dev)
+    l2 = torch.as_tensor(loc[n1 // 2: n1 // 2 + n2], dtype=torch.float32,
+                         device=dev)
+    H = torch.eye(3, device=dev)
+    F = torch.eye(3, device=dev)
+    gate, rep = boundary("guided", tm._MATCH_GRAPHS,
+                         lambda: tm._guided_gate(l1, l2, H, 32.0, F, 1e20))
+    want, rep_m = boundary("guided", tm._MATCH_GRAPHS, lambda: tm._match_core(
+        d1, d2, ones1, ones2, 0.7, 0.8, True, gate))
+    emit("compiled", n1=n1, n2=n2, admissible=int(gate.sum()),
+         matches=int((want >= 0).sum()), gate=rep, guided_match=rep_m,
+         what="guided", nvidia_smi=smi_line)
+
+    # ---- the RANSAC cores: the SfM's first pair, and a PnP of its scale ----
+    seq_feats, seq_K = seq[0], seq[1]
+    mm = tinc._match_pair(seq_feats[0], seq_feats[1], dev)
+    q1 = np.stack([seq_feats[0]["x"][mm[:, 0]], seq_feats[0]["y"][mm[:, 0]]],
+                  1).astype(np.float32)
+    q2 = np.stack([seq_feats[1]["x"][mm[:, 1]], seq_feats[1]["y"][mm[:, 1]]],
+                  1).astype(np.float32)
+    nm = len(q1)
+    idx = tinc.sample_indices(0, nm, (512, 8),
+                              np.full(nm, 1.0 / nm, np.float32), dev)
+    p1 = torch.as_tensor(q1, device=dev)
+    p2 = torch.as_tensor(q2, device=dev)
+    valid = torch.ones(nm, dtype=torch.bool, device=dev)
+    ttv.ransac_fundamental_from_samples.clear_cache()
+    want, rep = boundary("ransac_f", ttv._RANSAC_F_GRAPHS, lambda:
+                         ttv.ransac_fundamental_from_samples(idx, p1, p2,
+                                                             valid))
+    emit("compiled", matches=nm, hypotheses=512,
+         inliers=int(want.num_inliers), **rep, nvidia_smi=smi_line)
+
+    rng = np.random.RandomState(PNP_SEED)
+    X = rng.uniform(-1, 1, (PNP_N, 3)) * [3, 2, 1] + [0, 0, 6]
+    uv = X[:, :2] / X[:, 2:] * seq_K[0, 0] + seq_K[:2, 2]
+    uv[: PNP_N // 5] += rng.uniform(20, 60, (PNP_N // 5, 2))
+    uv += rng.normal(0, 0.5, uv.shape)
+    pcap = max(64, 1 << int(np.ceil(np.log2(PNP_N))))
+    Xp = np.zeros((pcap, 3), np.float32)
+    uvp = np.zeros((pcap, 2), np.float32)
+    Xp[:PNP_N], uvp[:PNP_N] = X, uv
+    pvalid = np.arange(pcap) < PNP_N
+    probs = pvalid / pvalid.sum()
+    pidx = tinc.sample_indices(1, pcap, (256, 6), probs.astype(np.float32),
+                               dev)
+    pargs = (pidx, torch.as_tensor(Xp, device=dev),
+             torch.as_tensor(uvp, device=dev),
+             torch.as_tensor(pvalid, device=dev),
+             torch.as_tensor(seq_K, dtype=torch.float32, device=dev))
+    ttv.ransac_pnp_from_samples.clear_cache()
+    want, rep = boundary("pnp", ttv._PNP_GRAPHS,
+                         lambda: ttv.ransac_pnp_from_samples(*pargs))
+    emit("compiled", correspondences=PNP_N, bucket=pcap, hypotheses=256,
+         inliers=int(want.num_inliers), **rep, nvidia_smi=smi_line)
+
+    # ---- the pose graph: a drifted 12-camera loop, 20 steps ----------------
+    C = PG_VIEWS
+    rng = np.random.RandomState(42)
+    rot = lambda w: so3_exp(torch.tensor(               # noqa: E731
+        w, dtype=torch.float32)[None])[0].double().numpy()
+    Rs = np.stack([rot([0.0, 0.3 * c, 0.0]) for c in range(C)])
+    tt = np.stack([[np.cos(0.3 * c), 0.1 * c % 0.5, np.sin(0.3 * c)]
+                   for c in range(C)])
+    edges = [(c, c + 1) for c in range(C - 1)] + [(0, C - 1), (0, C // 2)]
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32,  # noqa: E731
+                                    device=dev)
+    graph = tpg.PoseGraph(
+        edge_i=torch.as_tensor([i for i, _ in edges], device=dev),
+        edge_j=torch.as_tensor([j for _, j in edges], device=dev),
+        R_ij=f32(np.stack([Rs[j] @ Rs[i].T for i, j in edges])),
+        t_ij=f32(np.stack([tt[j] - Rs[j] @ Rs[i].T @ tt[i]
+                           for i, j in edges])),
+        weight=f32(np.ones(len(edges))))
+    Rp, tp = Rs.copy(), tt.copy()
+    for c in range(1, C):
+        Rp[c] = rot(0.05 * rng.randn(3)) @ Rp[c]
+        tp[c] = tp[c] + 0.1 * rng.randn(3)
+    tpg.optimize_pose_graph.clear_cache()
+    want, rep = boundary("posegraph", tpg._STEP_GRAPHS,
+                         lambda: tpg.optimize_pose_graph(f32(Rp), f32(tp),
+                                                         graph,
+                                                         iterations=20))
+    moved = float((want[1] - f32(tp)).abs().max())
+    if not moved > 1e-2:
+        fail(f"compiled: posegraph: the poses moved {moved}")
+    emit("compiled", views=C, edges=len(edges), iterations=20,
+         translation_moved=moved, **rep, nvidia_smi=smi_line)
+    return launches_by_path
+
+
 def compiled_phase(dev, smi_line, same, frames, ba_np, seq):
     """The compiled phase: the JAX package's jit boundaries as captured CUDA
     graphs (run_pipeline_jit, _batched_pipeline, lm_step) against the eager
@@ -783,16 +1151,15 @@ def compiled_phase(dev, smi_line, same, frames, ba_np, seq):
     def sync():
         torch.cuda.synchronize()
 
-    def window_ms(fn):
+    def window_ms(fn, window_s=COMPILED_WINDOW_S):
         """Host ms per call of fn: the best of COMPILED_WINDOWS windows of
-        about COMPILED_WINDOW_S each, a synchronize before and after each."""
+        about window_s each, a synchronize before and after each."""
         fn()
         sync()
         t0 = time.perf_counter()
         fn()
         sync()
-        n = max(1, int(COMPILED_WINDOW_S / max(time.perf_counter() - t0,
-                                               1e-6)))
+        n = max(1, int(window_s / max(time.perf_counter() - t0, 1e-6)))
         best = float("inf")
         for _ in range(COMPILED_WINDOWS):
             sync()
@@ -803,10 +1170,10 @@ def compiled_phase(dev, smi_line, same, frames, ba_np, seq):
             best = min(best, (time.perf_counter() - t0) * 1e3 / n)
         return best
 
-    def in_turns(eager_fn, graph_fn):
+    def in_turns(eager_fn, graph_fn, window_s=COMPILED_WINDOW_S):
         """eager, graph, graph, eager: each turn's best window, ms per call."""
-        return [window_ms(f) for f in (eager_fn, graph_fn, graph_fn,
-                                       eager_fn)]
+        return [window_ms(f, window_s) for f in (eager_fn, graph_fn,
+                                                 graph_fn, eager_fn)]
 
     def tables_equal(a, b, what):
         for f in a._fields:
@@ -1066,70 +1433,116 @@ def compiled_phase(dev, smi_line, same, frames, ba_np, seq):
          graph_pool_reserved_bytes=lm_st.pool_reserved_bytes,
          nvidia_smi=smi_line)
 
-    # ---- sfm: the sequence with captured LM steps ---------------------------
-    seq_feats, seq_K, seq_centers = seq
+    # ---- the boundaries past the pipeline and the LM step -------------------
+    boundary_launches = compiled_boundaries(dev, smi_line, same, frames, seq,
+                                            eager, sync, in_turns)
 
-    def reconstruct():
-        cap, cap_s = lm.captures, lm.capture_s
+    # ---- sfm: the sequence with every graph, and with the base ones alone ---
+    from hessgpu_tpu_torch import describe as tdesc
+    from hessgpu_tpu_torch import matcher as tm
+    from hessgpu_tpu_torch.sfm import posegraph as tpg
+    from hessgpu_tpu_torch.sfm import twoview as ttv
+
+    seq_feats, seq_K, seq_centers = seq
+    # the caches past the base ones (the pipeline's and the LM step's): off
+    # in the "base" runs
+    new_caches = {"match": tm._MATCH_GRAPHS,
+                  "ransac_f": ttv._RANSAC_F_GRAPHS, "pnp": ttv._PNP_GRAPHS,
+                  "posegraph": tpg._STEP_GRAPHS}
+    caches = dict(new_caches, lm=lm)
+
+    def reconstruct(mode):
+        for c in caches.values():         # a first pass
+            c.clear()
+        before = {k: (c.captures, c.capture_s, c.eager_calls, c.replays)
+                  for k, c in caches.items()}
         sync()
         t0 = time.perf_counter()
-        rec = tinc.reconstruct_sequence(seq_feats, seq_K, device="cuda")
+        if mode == "eager":
+            with disable_graphs():
+                rec = tinc.reconstruct_sequence(seq_feats, seq_K,
+                                                device="cuda")
+        elif mode == "base":
+            with disable_graphs(caches=new_caches.values()):
+                rec = tinc.reconstruct_sequence(seq_feats, seq_K,
+                                                device="cuda")
+        else:
+            rec = tinc.reconstruct_sequence(seq_feats, seq_K, device="cuda")
         sync()
         s = time.perf_counter() - t0
         if rec is None or rec.view_ids != list(range(len(seq_feats))):
-            fail(f"compiled: sfm: registered "
+            fail(f"compiled: sfm ({mode}): registered "
                  f"{None if rec is None else rec.view_ids}")
+        by_cache = {}
+        for k, c in caches.items():
+            eager_first = c.eager_calls - before[k][2]
+            replays = c.replays - before[k][3]
+            by_cache[k] = dict(
+                captures=c.captures - before[k][0],
+                capture_s=c.capture_s - before[k][1],
+                eager_first_calls=eager_first, replays=replays,
+                repeat_share=replays / max(replays + eager_first, 1),
+                graphs_held=len(c), reserved_bytes=c.reserved_bytes(),
+                first_two_shapes=[[list(sh) for sh, _ in g.key[1][:2]]
+                                  for g in c.stats()])
         return rec, dict(
-            seconds=s, captures=lm.captures - cap,
-            capture_s=lm.capture_s - cap_s, points=rec.num_points,
+            mode=mode, seconds=s, points=rec.num_points,
             ate=ate_rmse(camera_centers(rec.R, rec.t),
-                         seq_centers[rec.view_ids]))
+                         seq_centers[rec.view_ids]), **by_cache)
 
-    runs = [eager(reconstruct)(), reconstruct(), reconstruct(),
-            eager(reconstruct)()]
+    runs = [reconstruct(m) for m in SFM_TURNS]
     rec_of = lambda r: [np.stack(r[0].R), np.stack(r[0].t), r[0].points]
-    if not all(np.array_equal(a, b)
-               for a, b in zip(rec_of(runs[1]), rec_of(runs[2]))):
-        fail("compiled: sfm: two card runs with captured steps differ")
-    for r in runs[1:3]:
+    eager_run = runs[SFM_TURNS.index("eager")]
+    for r in runs:
+        if not all(np.array_equal(a, b)
+                   for a, b in zip(rec_of(eager_run), rec_of(r))):
+            fail(f"compiled: sfm: the {r[1]['mode']} run differs from the "
+                 "eager run")
         if not r[1]["ate"] <= 2 * JAX_SFM_ATE:
-            fail(f"compiled: sfm: ATE {r[1]['ate']}, limit "
-                 f"{2 * JAX_SFM_ATE}")
+            fail(f"compiled: sfm ({r[1]['mode']}): ATE {r[1]['ate']}, "
+                 f"limit {2 * JAX_SFM_ATE}")
+    seconds = lambda mode: [r[1]["seconds"] for m, r in          # noqa: E731
+                            zip(SFM_TURNS, runs) if m == mode]
+    all_runs = [r[1] for m, r in zip(SFM_TURNS, runs) if m == "all"]
     emit("compiled", what="sfm", frames=len(seq_feats),
-         registered=runs[1][0].num_cameras,
-         runs_eager_graph_graph_eager=[r[1] for r in runs],
-         two_graph_runs_bit_equal=True,
-         graph_run_equals_eager=all(
-             np.array_equal(a, b)
-             for a, b in zip(rec_of(runs[0]), rec_of(runs[1]))),
+         registered=runs[1][0].num_cameras, turns=list(SFM_TURNS),
+         first_pass_each=True, runs=[r[1] for r in runs],
+         runs_bit_equal_to_eager=True,
+         seconds_eager=seconds("eager"), seconds_base=seconds("base"),
+         seconds_all=seconds("all"),
+         median_all_over_base=statistics.median(seconds("all"))
+         / statistics.median(seconds("base")),
+         ransac_f_repeat_share=[r["ransac_f"]["repeat_share"]
+                                for r in all_runs],
          ate_limit=2 * JAX_SFM_ATE, lm_graph_bytes=tba.LM_GRAPH_BYTES,
-         lm_graphs_held=len(lm), lm_graphs_reserved_bytes=lm.reserved_bytes(),
-         lm_graph_pools=[
-             dict(shapes=[list(s) for s, _ in g.key[1][:5]],
-                  kept_bytes=g.kept_bytes,
-                  pool_reserved_bytes=g.pool_reserved_bytes,
-                  capture_s=g.capture_s, replays=g.replays)
-             for g in lm.stats()],
-         nvidia_smi=smi_line)
+         match_graph_bytes=tm.MATCH_GRAPH_BYTES,
+         ransac_graph_bytes=ttv.RANSAC_GRAPH_BYTES,
+         pose_graph_bytes=tpg.POSE_GRAPH_BYTES, nvidia_smi=smi_line)
 
     # ---- clear_cache returns the pools ---------------------------------------
-    del got, got2, kept, g1, g2, e, runs
+    del got, got2, kept, g1, g2, e, runs, eager_run
     sync()
-    held = (len(graphs), len(lm))
+    all_caches = [graphs, lm, tdesc._DESCRIBE_GRAPHS, *new_caches.values()]
+    held = [len(c) for c in all_caches]
     before = torch.cuda.memory_allocated()
     reserved_before = torch.cuda.memory_reserved()
-    tpyr.run_pipeline_jit.clear_cache()
-    tba.lm_step.clear_cache()
+    for clear in (tpyr.run_pipeline_jit.clear_cache, tba.lm_step.clear_cache,
+                  tdesc.describe_keypoints.clear_cache,
+                  tm._match_core.clear_cache,
+                  ttv.ransac_fundamental_from_samples.clear_cache,
+                  ttv.ransac_pnp_from_samples.clear_cache,
+                  tpg.optimize_pose_graph.clear_cache):
+        clear()
     after = torch.cuda.memory_allocated()
-    if len(graphs) or len(lm) or not after < before:
-        fail(f"compiled: clear_cache left {len(graphs)} + {len(lm)} graphs, "
-             f"memory_allocated {before} -> {after}")
-    emit("compiled", what="clear_cache", graphs_before=list(held),
+    if any(len(c) for c in all_caches) or not after < before:
+        fail(f"compiled: clear_cache left {[len(c) for c in all_caches]} "
+             f"graphs, memory_allocated {before} -> {after}")
+    emit("compiled", what="clear_cache", graphs_before=held,
          memory_allocated_before=before, memory_allocated_after=after,
          memory_reserved_before=reserved_before,
          memory_reserved_after=torch.cuda.memory_reserved(),
          nvidia_smi=smi_line)
-    return replay_launches
+    return replay_launches, boundary_launches
 
 
 def main():
@@ -1159,8 +1572,8 @@ def main():
     # count their launches (a graph replay calls no wrapper).
     with disable_graphs():
         ran = eager_phases(dev, smi_line)
-    replay_launches = compiled_phase(dev, smi_line, ran["same"], ran["frames"],
-                                     ran["ba_np"], ran["seq"])
+    replay_launches, boundary_launches = compiled_phase(
+        dev, smi_line, ran["same"], ran["frames"], ran["ba_np"], ran["seq"])
     timing = ran["timing"]
 
     emit("blur", octave0_ms=timing["blur"]["ms"],
@@ -1173,6 +1586,9 @@ def main():
         t = timing[name]
         t["launches_by_path"] = {
             path: n[name] for path, n in ran["launches_by_path"].items()}
+        # the re-entry graphs' launches (a replay's, read at its capture)
+        t["launches_by_path"].update(
+            (path, n.get(name, 0)) for path, n in boundary_launches.items())
         t["spatial_n4_device_ms"] = ran["spatial_kernel_ms"][name]
         t["launches_per_default_replay"] = replay_launches[name]
         kernels.append({

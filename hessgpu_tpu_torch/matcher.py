@@ -19,6 +19,21 @@ product and two argmax/masks.
     (SiftMatchCU.cpp:148-173).
   * guided matching gates pairs by homography distance and fundamental-matrix
     Sampson error before the descriptor test (ProgramCU.cu:3565-3731).
+
+_match_core and _guided_gate are the JAX package's jitted functions of the
+same names: on the card each replays one captured CUDA graph per key
+(_match_core: mutual_best, whether a gate is given; the bucketed shapes;
+the device), the thresholds entering as 0-d tensors, as JAX traces them.
+A pair's (N1, N2) follows the data, so on the card both are padded to
+power-of-two buckets (_bucket) with rows that are not valid, and the
+graph's result is cut back to (N1, N2): the keys repeat across pairs and
+are captured at their first call. A padded row or column dots to -1, as
+a masked one does, so it is never a best match and never a real row's
+second best above what a masked column already gives; the real rows'
+results are the unpadded body's, bit for bit. On the CPU, and inside
+utils.graphs.disable_graphs(), they run their eager bodies unpadded
+(_match_core_eager, _guided_gate_eager). _match_core.clear_cache() frees
+the graphs of both.
 """
 
 from __future__ import annotations
@@ -27,9 +42,15 @@ import numpy as np
 import torch
 
 from .pyramid import resolve_device
+from .utils.graphs import GraphCache, graphs_enabled
 from .utils.precision import full_f32_matmul
 
 INV_512_SQ = 1.0 / (512.0 * 512.0)
+
+# The bytes the captured matching programs may reserve, the least recently
+# used dropped first (PERF.md, chip_smoke.py's compiled phase).
+MATCH_GRAPH_BYTES = 1 << 30
+_MATCH_GRAPHS = GraphCache(MATCH_GRAPH_BYTES)
 
 
 def quantize_descriptors(desc: np.ndarray) -> np.ndarray:
@@ -63,37 +84,95 @@ def _accept(bv, nv, distmax, ratiomax):
     return (dist < distmax) & (dist < distn * ratiomax)
 
 
+def _scalar(v, like: torch.Tensor) -> torch.Tensor:
+    """A threshold as a 0-d float32 tensor on like's device."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=like.device, dtype=torch.float32)
+    return torch.full((), v, dtype=torch.float32, device=like.device)
+
+
+def _bucket(n: int) -> int:
+    """The padded size of n rows: a power of two, at least 8; n itself
+    below 2 (a single candidate's second best is -inf, where a padded one
+    would give -1)."""
+    return n if n < 2 else max(8, 1 << (n - 1).bit_length())
+
+
+def _padded(t: torch.Tensor, shape, value) -> torch.Tensor:
+    """t in the leading corner of a `shape` tensor filled with value."""
+    if tuple(t.shape) == tuple(shape):
+        return t
+    pads = [p for n, c in zip(reversed(t.shape), reversed(shape))
+            for p in (0, c - n)]
+    return torch.nn.functional.pad(t, pads, value=value)
+
+
 def _match_core(d1, d2, valid1, valid2, distmax, ratiomax, mutual_best=True,
                 gate=None):
     """d1 (N1, 128) u8, d2 (N2, 128) u8 tensors -> match index per row (or
-    -1), int64 (N1,) on their device.
+    -1), int64 (N1,) on their device. distmax, ratiomax: floats or 0-d
+    tensors.
 
     gate: optional (N1, N2) bool mask of geometrically admissible pairs.
+    On the card: the graph of _match_core_eager for the key and the
+    bucketed (N1, N2), its first N1 rows.
     """
+    dmax, rmax = _scalar(distmax, d1), _scalar(ratiomax, d1)
+    if not (d1.is_cuda and graphs_enabled(_MATCH_GRAPHS)):
+        return _match_core_eager(d1, d2, valid1, valid2, dmax, rmax,
+                                 mutual_best, gate)
+    (n1, k), n2 = d1.shape, d2.shape[0]
+    c1, c2 = _bucket(n1), _bucket(n2)
+    args = (_padded(d1, (c1, k), 0), _padded(d2, (c2, k), 0),
+            _padded(valid1, (c1,), False), _padded(valid2, (c2,), False),
+            dmax, rmax) + (() if gate is None
+                           else (_padded(gate, (c1, c2), False),))
+    return _MATCH_GRAPHS(
+        ("match", bool(mutual_best), gate is not None),
+        lambda *a: _match_core_eager(*a[:6], mutual_best, *a[6:]),
+        *args)[:n1]
+
+
+def _match_core_eager(d1, d2, valid1, valid2, distmax, ratiomax,
+                      mutual_best=True, gate=None):
+    """The body of _match_core (the thresholds floats or 0-d tensors)."""
     dots = descriptor_dots(d1, d2)
     vmask = valid1[:, None] & valid2[None, :]
     if gate is not None:
         vmask = vmask & gate
     dots = torch.where(vmask, dots, torch.full_like(dots, -1.0))
 
-    none = torch.tensor(-1, dtype=torch.int64, device=dots.device)
     ri, rv, rn = _best_two(dots, 1)
     row_match = torch.where(_accept(rv, rn, distmax, ratiomax) & (rv > 0),
-                            ri, none)
+                            ri, -1)
 
     if mutual_best:
         ci, cv, cn = _best_two(dots, 0)
         col_match = torch.where(_accept(cv, cn, distmax, ratiomax)
-                                & (cv > 0), ci, none)
+                                & (cv > 0), ci, -1)
         rows = torch.arange(d1.shape[0], device=dots.device)
         mutual = col_match[row_match.clamp(0, d2.shape[0] - 1)] == rows
-        row_match = torch.where((row_match >= 0) & mutual, row_match, none)
+        row_match = torch.where((row_match >= 0) & mutual, row_match, -1)
     return row_match
 
 
 def _guided_gate(loc1, loc2, H, hdistmax, F, fdistmax):
     """Geometric admissibility mask (N1, N2) of float32 tensors loc1 (N1, 2),
-    loc2 (N2, 2), H and F (3, 3).
+    loc2 (N2, 2), H and F (3, 3); hdistmax, fdistmax floats or 0-d tensors.
+    On the card: the graph of _guided_gate_eager for the bucketed shapes
+    (padded locations at the origin), its leading (N1, N2) block."""
+    hmax, fmax = _scalar(hdistmax, loc1), _scalar(fdistmax, loc1)
+    if not (loc1.is_cuda and graphs_enabled(_MATCH_GRAPHS)):
+        return _guided_gate_eager(loc1, loc2, H, hmax, F, fmax)
+    n1, n2 = loc1.shape[0], loc2.shape[0]
+    p1 = _padded(loc1, (_bucket(n1), 2), 0.0)
+    p2 = _padded(loc2, (_bucket(n2), 2), 0.0)
+    return _MATCH_GRAPHS(("gate",), _guided_gate_eager,
+                         p1, p2, H, hmax, F, fmax)[:n1, :n2]
+
+
+def _guided_gate_eager(loc1, loc2, H, hdistmax, F, fdistmax):
+    """The body of _guided_gate.
 
     Homography: |H*x1 - x2|_inf-style per-coordinate test; fundamental:
     Sampson error x2'Fx1 (ProgramCU.cu:3618-3643).
@@ -190,3 +269,6 @@ class SiftMatcher:
         self.set_descriptors(0, feats1["desc"])
         self.set_descriptors(1, feats2["desc"])
         return self.get_sift_match(**kw)
+
+
+_match_core.clear_cache = _MATCH_GRAPHS.clear

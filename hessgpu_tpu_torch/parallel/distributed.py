@@ -39,7 +39,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..matcher import _accept, _best_two, _guided_gate, descriptor_dots
+from ..matcher import _accept, _best_two, _guided_gate_eager, descriptor_dots
 from ..pyramid import resolve_device
 
 
@@ -288,8 +288,9 @@ def match_sharded(d1, d2, mesh: Optional[DeviceMesh] = None,
                 j1 = min(n2, j0 + n2_tile)
                 dots = descriptor_dots(a, d2[j0:j1])
                 if guided:
-                    gate = _guided_gate(loc1[r0 + i0:r0 + i1], loc2[j0:j1],
-                                        H, hdistmax, F, fdistmax)
+                    gate = _guided_gate_eager(
+                        loc1[r0 + i0:r0 + i1], loc2[j0:j1], H, hdistmax, F,
+                        fdistmax)
                     dots = dots.masked_fill_(~gate, -1.0)
                     del gate
                 bi, bv, nv = _best_two(dots, 1)

@@ -10,6 +10,12 @@ Jacobian).
 
 Convention: world->camera poses (R_c, t_c); the relative measurement
 predicts R_ij = R_j R_i^T, t_ij = t_j - R_j R_i^T t_i.
+
+A Gauss-Newton step is the JAX package's jitted `step`: on the card it
+replays one captured CUDA graph per (C, E, lam, fix_first, device), which
+optimize_pose_graph replays `iterations` times; it reads nothing back. On
+the CPU, and inside utils.graphs.disable_graphs(), it runs _step.
+optimize_pose_graph.clear_cache() frees the graphs.
 """
 
 from __future__ import annotations
@@ -19,10 +25,16 @@ from typing import NamedTuple, Tuple
 import torch
 from torch.func import jacfwd, vmap
 
+from ..utils.graphs import GraphCache, graphs_enabled
 from ..utils.precision import full_f32_matmul
 from .ba import segment_sum, so3_exp
 
 CG_STEPS = 40
+
+# The bytes the captured steps may reserve, the least recently used dropped
+# first (PERF.md, chip_smoke.py's compiled phase).
+POSE_GRAPH_BYTES = 1 << 30
+_STEP_GRAPHS = GraphCache(POSE_GRAPH_BYTES)
 
 
 class PoseGraph(NamedTuple):
@@ -128,6 +140,27 @@ def _step(R, t, graph: PoseGraph, mask, lam: float):
     return torch.where(ok, Rn, R), torch.where(ok, tn, t)
 
 
+def _free_mask(R, fix_first: bool):
+    """(C, 1): 1 for a camera the step moves, 0 for a fixed one."""
+    mask = R.new_ones((R.shape[0], 1))
+    if fix_first:
+        mask[:1].fill_(0.0)
+    return mask
+
+
+def step(R, t, graph: PoseGraph, lam: float = 1e-4, fix_first: bool = True):
+    """One Gauss-Newton step (_step with the first camera fixed or not), run
+    with TF32 off. On the card: the graph of (C, E, lam, fix_first)."""
+    with full_f32_matmul():
+        if R.is_cuda and graphs_enabled(_STEP_GRAPHS):
+            return _STEP_GRAPHS(
+                (float(lam), bool(fix_first)),
+                lambda R, t, g: _step(R, t, g, _free_mask(R, fix_first),
+                                      lam),
+                R, t, graph)
+        return _step(R, t, graph, _free_mask(R, fix_first), lam)
+
+
 def optimize_pose_graph(R0, t0, graph: PoseGraph, iterations: int = 20,
                         lam: float = 1e-4, fix_first: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -136,13 +169,12 @@ def optimize_pose_graph(R0, t0, graph: PoseGraph, iterations: int = 20,
     dev = graph.edge_i.device
     R = torch.as_tensor(R0, dtype=torch.float32, device=dev)
     t = torch.as_tensor(t0, dtype=torch.float32, device=dev)
-    mask = R.new_ones((R.shape[0], 1))
-    if fix_first:
-        mask[0] = 0.0
-    with full_f32_matmul():
-        for _ in range(iterations):
-            R, t = _step(R, t, graph, mask, lam)
+    for _ in range(iterations):
+        R, t = step(R, t, graph, lam, fix_first)
     return R, t
+
+
+optimize_pose_graph.clear_cache = _STEP_GRAPHS.clear
 
 
 def graph_cost(R, t, graph: PoseGraph) -> float:

@@ -8,6 +8,20 @@ loop. Each RANSAC is split into a sampler and a deterministic core
 functions draw them from a torch.Generator on the host, and
 sfm/incremental.py feeds the cores the JAX package's own draws
 (sfm/prng.py).
+
+The two cores are the JAX package's jitted ransac_fundamental and
+ransac_pnp: on the card each replays one captured CUDA graph per
+(threshold, the shapes, the device). torch.linalg.svd reads its
+convergence flags back to the host, which no capture can hold, so a core's
+graph is a chain of graphs with its SVDs run eagerly between them (the
+cores are generators that yield each SVD: utils.graphs.Eager). A
+fundamental RANSAC's N follows the data (its draws depend on N, so it is
+not padded), so its key is captured at its second call and its first runs
+eagerly; PnP's correspondences are padded to powers of two by the caller
+and captured at the first call. On the CPU, and inside
+utils.graphs.disable_graphs(), the cores run eagerly.
+ransac_fundamental_from_samples.clear_cache() and
+ransac_pnp_from_samples.clear_cache() free their graphs.
 """
 
 from __future__ import annotations
@@ -17,9 +31,17 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.graphs import Eager, GraphCache, graphs_enabled, run_eagerly
 from ..utils.precision import full_f32_matmul
 
 _SQRT2 = math.sqrt(2.0)
+
+# The bytes the captured RANSAC programs may reserve, each core its own
+# cache, the least recently used dropped first (PERF.md, chip_smoke.py's
+# compiled phase).
+RANSAC_GRAPH_BYTES = 1 << 30
+_RANSAC_F_GRAPHS = GraphCache(RANSAC_GRAPH_BYTES, capture_at=2)
+_PNP_GRAPHS = GraphCache(RANSAC_GRAPH_BYTES)
 
 
 class TwoViewResult(NamedTuple):
@@ -65,22 +87,35 @@ def _design(n1, n2):
                         torch.ones_like(x1)], -1)
 
 
+def _svd_vh(A):
+    """Vh of A's full SVD: a call the graphs leave out."""
+    return torch.linalg.svd(A, full_matrices=True).Vh
+
+
+def _svd(A):
+    """(U, S, Vh) of A's full SVD: a call the graphs leave out."""
+    return tuple(torch.linalg.svd(A))
+
+
 def _rank2_null_vector(A):
     """F (..., 3, 3) from the right null vector of A (..., M, 9), its
-    smallest singular value set to 0."""
-    vt = torch.linalg.svd(A, full_matrices=True).Vh
+    smallest singular value set to 0. A generator: it yields its SVDs
+    (utils.graphs.Eager)."""
+    vt = yield Eager(_svd_vh, (A,))
     F = vt[..., -1, :].reshape(*A.shape[:-2], 3, 3)
-    u, s, vt2 = torch.linalg.svd(F)
-    s = s * s.new_tensor([1.0, 1.0, 0.0])
+    u, s, vt2 = yield Eager(_svd, (F,))
+    keep = s.new_ones(3)
+    keep[2:].fill_(0.0)      # a fill: assigning a float would copy it in
+    s = s * keep
     return (u * s[..., None, :]) @ vt2
 
 
 def _eight_point(p1, p2):
     """Normalized 8-point F of (..., M, 2) correspondences, rank 2, scaled
-    so that F[2, 2] = 1."""
+    so that F[2, 2] = 1. A generator, as _rank2_null_vector."""
     n1, T1 = _normalize_points(p1)
     n2, T2 = _normalize_points(p2)
-    F = T2.mT @ _rank2_null_vector(_design(n1, n2)) @ T1
+    F = T2.mT @ (yield from _rank2_null_vector(_design(n1, n2))) @ T1
     f22 = F[..., 2, 2]
     f22 = f22 + torch.where(f22.abs() < 1e-12, 1e-12, 0.0)
     return F / f22[..., None, None]
@@ -91,7 +126,7 @@ def eight_point(p1, p2):
 
     p1, p2: (M, 2). Returns (3, 3) F with rank-2 enforcement."""
     with full_f32_matmul():
-        return _eight_point(p1, p2)
+        return run_eagerly(_eight_point(p1, p2))
 
 
 def sampson_error(F, p1, p2):
@@ -109,6 +144,12 @@ def sampson_error(F, p1, p2):
     return num / (den + 1e-12)
 
 
+def _at(x, i):
+    """x[i] for a 0-d index tensor i, without reading i back to the host
+    (indexing by a 0-d tensor does, which no capture can hold)."""
+    return x[i.reshape(1)][0]
+
+
 def _draw(generator, valid, shape):
     """Indices (shape) drawn with replacement among the valid entries, on
     the host from `generator`, placed on valid's device."""
@@ -121,23 +162,37 @@ def _draw(generator, valid, shape):
 def ransac_fundamental_from_samples(idx, p1, p2, valid,
                                     threshold: float = 2.0) -> TwoViewResult:
     """The deterministic core of ransac_fundamental: idx (H, 8) are the
-    hypotheses' correspondence indices."""
+    hypotheses' correspondence indices. On the card: the graphs of
+    _ransac_fundamental_core for (threshold, the shapes), captured at the
+    key's second call."""
     with full_f32_matmul():
-        Fs = _eight_point(p1[idx], p2[idx])                 # (H, 3, 3)
-        errs = sampson_error(Fs, p1, p2)                    # (H, N)
-        thr2 = threshold * threshold
-        inl = (errs < thr2) & valid[None, :]
-        scores = inl.sum(1)
-        best = torch.argmax(scores)
+        if p1.is_cuda and graphs_enabled(_RANSAC_F_GRAPHS):
+            return _RANSAC_F_GRAPHS(
+                (float(threshold),),
+                lambda *a: _ransac_fundamental_core(*a, threshold),
+                idx, p1, p2, valid)
+        return run_eagerly(
+            _ransac_fundamental_core(idx, p1, p2, valid, threshold))
 
-        # refit on the best hypothesis' inliers (weighted by mask)
-        best_inl = inl[best]
-        Ff = _weighted_eight_point(p1, p2, best_inl.to(p1.dtype))
-        inl_f = (sampson_error(Ff, p1, p2) < thr2) & valid
-        # keep the refit only if it didn't lose inliers
-        better = inl_f.sum() >= scores[best]
-        F = torch.where(better, Ff, Fs[best])
-        inliers = torch.where(better, inl_f, best_inl)
+
+def _ransac_fundamental_core(idx, p1, p2, valid, threshold):
+    """The body of ransac_fundamental_from_samples, run with TF32 off: a
+    generator that yields its SVDs."""
+    Fs = yield from _eight_point(p1[idx], p2[idx])          # (H, 3, 3)
+    errs = sampson_error(Fs, p1, p2)                        # (H, N)
+    thr2 = threshold * threshold
+    inl = (errs < thr2) & valid[None, :]
+    scores = inl.sum(1)
+    best = torch.argmax(scores)
+
+    # refit on the best hypothesis' inliers (weighted by mask)
+    best_inl = _at(inl, best)
+    Ff = yield from _weighted_eight_point(p1, p2, best_inl.to(p1.dtype))
+    inl_f = (sampson_error(Ff, p1, p2) < thr2) & valid
+    # keep the refit only if it didn't lose inliers
+    better = inl_f.sum() >= _at(scores, best)
+    F = torch.where(better, Ff, _at(Fs, best))
+    inliers = torch.where(better, inl_f, best_inl)
     return TwoViewResult(F=F, inliers=inliers, num_inliers=inliers.sum())
 
 
@@ -157,7 +212,8 @@ def ransac_fundamental(p1, p2, valid, threshold: float = 2.0,
 
 
 def _weighted_eight_point(p1, p2, wts):
-    """Least-squares F from weighted correspondences (soft inlier refit)."""
+    """Least-squares F from weighted correspondences (soft inlier refit). A
+    generator, as _rank2_null_vector."""
     wsum = wts.sum() + 1e-12
     m1 = (wts[:, None] * p1).sum(0) / wsum
     m2 = (wts[:, None] * p2).sum(0) / wsum
@@ -168,7 +224,7 @@ def _weighted_eight_point(p1, p2, wts):
     s2 = _SQRT2 / ((wts * torch.linalg.vector_norm(c2, dim=1)).sum() / wsum
                    + 1e-12)
     A = _design(c1 * s1, c2 * s2) * wts[:, None]
-    F = _rank2_null_vector(A)
+    F = yield from _rank2_null_vector(A)
     return _similarity(s2, m2).T @ F @ _similarity(s1, m1)
 
 
@@ -242,6 +298,7 @@ def recover_pose(E, p1, p2, K1, K2, valid=None):
 def _dlt_pose6(X, x_norm):
     """6-point DLT poses [R|t] from 3D-2D (normalized) correspondences,
     batched: X (H, 6, 3), x_norm (H, 6, 2). Returns (R, t, ok), branch-free.
+    A generator that yields its SVDs (utils.graphs.Eager).
     """
     Xh = torch.cat([X, X.new_ones(X.shape[:-1] + (1,))], -1)   # (H, 6, 4)
     u_, v_ = x_norm[..., 0, None], x_norm[..., 1, None]
@@ -249,9 +306,9 @@ def _dlt_pose6(X, x_norm):
     rows1 = torch.cat([zeros, -Xh, v_ * Xh], -1)
     rows2 = torch.cat([Xh, zeros, -u_ * Xh], -1)
     A = torch.cat([rows1, rows2], -2)                          # (H, 12, 12)
-    vt = torch.linalg.svd(A, full_matrices=True).Vh
+    vt = yield Eager(_svd_vh, (A,))
     P = vt[..., -1, :].reshape(*A.shape[:-2], 3, 4)
-    um, sm, vtm = torch.linalg.svd(P[..., :3])
+    um, sm, vtm = yield Eager(_svd, (P[..., :3],))
     d = torch.sign(torch.linalg.det(um @ vtm))
     diag = torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1)
     R = um @ torch.diag_embed(diag) @ vtm
@@ -264,23 +321,36 @@ def _dlt_pose6(X, x_norm):
 def ransac_pnp_from_samples(idx, pts3d, pts2d, valid, K,
                             threshold: float = 8.0) -> PnPResult:
     """The deterministic core of ransac_pnp: idx (H, 6) are the
-    hypotheses' correspondence indices."""
+    hypotheses' correspondence indices. On the card: the graphs of
+    _ransac_pnp_core for (threshold, the shapes)."""
     with full_f32_matmul():
-        ones = pts2d.new_ones((pts2d.shape[0], 1))
-        norm2d = (torch.cat([pts2d, ones], 1)
-                  @ torch.linalg.inv_ex(K)[0].T)[:, :2]
-        Rs, ts, oks = _dlt_pose6(pts3d[idx], norm2d[idx])
-        xc = pts3d @ Rs.mT + ts[:, None, :]                   # (H, N, 3)
-        z = torch.clamp(xc[..., 2], min=1e-9)
-        pix = (xc[..., :2] / z[..., None]) @ K[:2, :2].T + K[:2, 2]
+        if pts3d.is_cuda and graphs_enabled(_PNP_GRAPHS):
+            return _PNP_GRAPHS(
+                (float(threshold),),
+                lambda *a: _ransac_pnp_core(*a, threshold),
+                idx, pts3d, pts2d, valid, K)
+        return run_eagerly(
+            _ransac_pnp_core(idx, pts3d, pts2d, valid, K, threshold))
+
+
+def _ransac_pnp_core(idx, pts3d, pts2d, valid, K, threshold):
+    """The body of ransac_pnp_from_samples, run with TF32 off: a generator
+    that yields its SVDs."""
+    ones = pts2d.new_ones((pts2d.shape[0], 1))
+    norm2d = (torch.cat([pts2d, ones], 1)
+              @ torch.linalg.inv_ex(K)[0].T)[:, :2]
+    Rs, ts, oks = yield from _dlt_pose6(pts3d[idx], norm2d[idx])
+    xc = pts3d @ Rs.mT + ts[:, None, :]                       # (H, N, 3)
+    z = torch.clamp(xc[..., 2], min=1e-9)
+    pix = (xc[..., :2] / z[..., None]) @ K[:2, :2].T + K[:2, 2]
     err = torch.linalg.vector_norm(pix - pts2d, dim=-1)
     errs = torch.where((xc[..., 2] > 0) & valid, err,
                        torch.full_like(err, float("inf")))
     inl = (errs < threshold) & oks[:, None]
     scores = inl.sum(1)
     best = torch.argmax(scores)
-    return PnPResult(R=Rs[best], t=ts[best], inliers=inl[best],
-                     num_inliers=scores[best])
+    return PnPResult(R=_at(Rs, best), t=_at(ts, best),
+                     inliers=_at(inl, best), num_inliers=_at(scores, best))
 
 
 def ransac_pnp(pts3d, pts2d, valid, K, threshold: float = 8.0,
@@ -297,6 +367,10 @@ def ransac_pnp(pts3d, pts2d, valid, K, threshold: float = 8.0,
     The 6-tuples are drawn from `generator`, a CPU torch.Generator."""
     idx = _draw(generator, valid, (num_hypotheses, 6))
     return ransac_pnp_from_samples(idx, pts3d, pts2d, valid, K, threshold)
+
+
+ransac_fundamental_from_samples.clear_cache = _RANSAC_F_GRAPHS.clear
+ransac_pnp_from_samples.clear_cache = _PNP_GRAPHS.clear
 
 
 def type_aware_match_mask(type1, type2):

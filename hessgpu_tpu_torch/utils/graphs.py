@@ -1,11 +1,14 @@
 """Captured CUDA graphs, one per static key: the port's counterpart of the
 JAX package's jax.jit caches (hessgpu_tpu/pyramid.py run_pipeline_jit,
-parallel/batch.py _batched_pipeline, sfm/ba.py lm_step).
+parallel/batch.py _batched_pipeline, sfm/ba.py lm_step, describe.py
+_pyramid_gradients / _orient_and_describe_level / _describe_all_pallas,
+matcher.py _match_core / _guided_gate, sfm/twoview.py ransac_fundamental /
+ransac_pnp, sfm/posegraph.py's step).
 
 A jitted JAX function compiles one program per static argument and input
 shape and reuses it; a GraphCache captures one CUDA graph per key and input
 shapes, dtypes and device, and replays it. The first call of a key runs the
-function once eagerly on a side stream (the kernels' first-use set-up:
+function once eagerly on the capture stream (the kernels' first-use set-up:
 shared-memory attributes, cuBLAS handles), then captures one call into a
 graph with a private memory pool. Every call, the first included, copies
 the caller's tensors into the graph's static inputs, replays the graph on
@@ -20,6 +23,22 @@ arguments they had then, host values and device addresses alike, so the
 function must take every input that changes from call to call as a tensor
 argument.
 
+A cache made with capture_at=2 runs a key's first call eagerly, on the
+caller's stream, and captures the key at its second call (that first call
+was its warm-up): where the shapes follow the data and cannot be padded
+(a fundamental RANSAC's N: its draws depend on N), most keys are met once,
+and a capture costs more than the call. The keys met once are remembered,
+the SEEN_KEYS most recent of them.
+
+A function may yield Eager(fn, args) where it needs a call that no capture
+can hold (torch.linalg.svd reads its convergence flags back to the host),
+and is sent fn(*args). Its graph is then a chain of graphs, captured into
+one pool, with those calls run eagerly between them: a call replays a
+segment, runs the eager call on that segment's output, copies its result
+into the next segment's static input, and so on. Called eagerly
+(run_eagerly), the same generator runs every Eager call where it stands,
+so both routes run one body.
+
 A graph keeps the buffers of its call in its pool for as long as it is
 cached, where an eager call returns them to the caching allocator: a cache
 is bounded by the bytes its graphs reserve, the least recently used graph
@@ -27,13 +46,14 @@ dropped first.
 
 Threads may share a cache (the feature server gives each client a thread):
 one call's copy in, replay and clones out are one unit, which another
-thread's call of the same graph waits for, on the host and on the card; and
-one capture runs at a time in the process, in CUDA's thread-local capture
-mode, so that other threads' work goes on meanwhile.
+thread's call of the same graph waits for, on the host and on the card;
+and one capture runs at a time in the process, in CUDA's thread-local
+capture mode, so that other threads' work goes on meanwhile.
 
 disable_graphs() is the counterpart of jax.disable_jit(): inside it the
-entry points that replay graphs run their eager bodies instead. It is one
-setting for the whole process, not one per thread.
+entry points that replay graphs run their eager bodies instead;
+disable_graphs(caches=[...]) does so for those caches' entry points only.
+It is one setting for the whole process, not one per thread.
 """
 
 from __future__ import annotations
@@ -41,8 +61,9 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
+import types
 from collections import OrderedDict
-from typing import Callable, Dict, List, NamedTuple
+from typing import Callable, Dict, FrozenSet, List, NamedTuple
 
 import torch
 from torch.utils import _pytree as pytree
@@ -50,31 +71,82 @@ from torch.utils import _pytree as pytree
 from ..ops.cuda import build
 
 _disabled = False
+_disabled_caches: FrozenSet["GraphCache"] = frozenset()
+
+# keys met once that a capture_at=2 cache remembers, the oldest dropped first
+SEEN_KEYS = 4096
 
 # One capture at a time in the process, and no cache emptied during one.
 _capture_lock = threading.Lock()
 
 
 @contextlib.contextmanager
-def disable_graphs(disable: bool = True):
+def disable_graphs(disable: bool = True, caches=None):
     """Run the graph entry points eagerly inside the block (the counterpart
-    of jax.disable_jit); the caller's setting comes back after it."""
-    global _disabled
-    prev, _disabled = _disabled, disable
+    of jax.disable_jit); with `caches`, only the entry points of those
+    GraphCaches. The caller's setting comes back after it."""
+    global _disabled, _disabled_caches
+    prev = _disabled, _disabled_caches
+    if caches is None:
+        _disabled = disable
+    elif disable:
+        _disabled_caches = _disabled_caches | frozenset(caches)
+    else:
+        _disabled_caches = _disabled_caches - frozenset(caches)
     try:
         yield
     finally:
-        _disabled = prev
+        _disabled, _disabled_caches = prev
 
 
-def graphs_enabled() -> bool:
-    return not _disabled
+def graphs_enabled(cache: "GraphCache" = None) -> bool:
+    """Whether the entry points replay graphs (those of `cache`, if given)."""
+    return not _disabled and cache not in _disabled_caches
+
+
+class Eager(NamedTuple):
+    """A call that a graph leaves out: yielded by the function a GraphCache
+    captures, which is sent fn(*args) (tensors, or tuples of tensors)."""
+    fn: Callable
+    args: tuple
+
+
+def run_eagerly(out):
+    """The value of a graph's function called eagerly: `out` itself, or,
+    where the function is a generator, what it returns once every Eager call
+    it yields has run where it stands."""
+    if not isinstance(out, types.GeneratorType):
+        return out
+    try:
+        req = next(out)
+        while True:
+            req = out.send(req.fn(*req.args))
+    except StopIteration as stop:
+        return stop.value
+
+
+def _segments(fn: Callable, args):
+    """fn(*args) as a generator: fn's own, or one that yields nothing."""
+    out = fn(*args)
+    if isinstance(out, types.GeneratorType):
+        return (yield from out)
+    return out
+
+
+class _Segment(NamedTuple):
+    """One captured graph of a call, and the eager call after it (None after
+    the last): its result is copied into `results`, the next segment's
+    static input."""
+    graph: "torch.cuda.CUDAGraph"
+    call: "Eager"
+    results: List[torch.Tensor]
 
 
 class GraphStats(NamedTuple):
     """What one captured graph cost and holds."""
     key: tuple
-    capture_s: float          # the eager warm-up call, capture, instantiation
+    capture_s: float          # the eager warm-up call (if any), capture,
+    #                           instantiation
     kept_bytes: int           # memory_allocated the graph holds: its static
     #                           inputs and outputs (live blocks of its pool)
     pool_reserved_bytes: int  # memory_reserved it holds: its static inputs
@@ -83,15 +155,33 @@ class GraphStats(NamedTuple):
     inputs: int               # tensors copied in per call
     outputs: int              # tensors cloned out per call
     replays: int
+    capture_at: int = 1       # the call of its key that captured it
+    eager_calls: int = 0      # the key's calls run eagerly before it
+    segments: int = 1         # graphs a call replays
+    eager_between: int = 0    # calls run eagerly between them (Eager)
+    between_copies: int = 0   # tensors copied from those into the graphs
+
+
+# one capture stream per device, as torch.cuda.graph keeps one
+_capture_streams: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(dev) -> "torch.cuda.Stream":
+    if dev.index not in _capture_streams:
+        _capture_streams[dev.index] = torch.cuda.Stream(dev)
+    return _capture_streams[dev.index]
 
 
 class _Graph:
-    """One captured call of fn: the graph, its static inputs and outputs.
-    Made under _capture_lock. The memory counts are the device's counters
-    before and after, so other threads' allocations meanwhile show in
-    them."""
+    """One captured call of fn: its segments, static inputs and outputs, in
+    a private memory pool. Made under _capture_lock. The memory counts are
+    the device's counters before and after, so other threads' allocations
+    meanwhile show in them. warm_up: whether to call fn once eagerly on the
+    capture stream first (first-use set-up: kernel attributes, library
+    handles), for a key whose first call this is."""
 
-    def __init__(self, key, fn: Callable, leaves: List[torch.Tensor], spec):
+    def __init__(self, key, fn: Callable, leaves: List[torch.Tensor], spec,
+                 capture_at: int = 1, warm_up: bool = True):
         self.fn = fn        # and what it holds: tensors the capture read
         dev = leaves[0].device
         t0 = time.perf_counter()
@@ -99,26 +189,46 @@ class _Graph:
                           for t in leaves]
         in_bytes = sum(t.untyped_storage().nbytes() for t in self.static_in)
         args = pytree.tree_unflatten(self.static_in, spec)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            fn(*args)                   # first use: kernel and library set-up
-        torch.cuda.current_stream(dev).wait_stream(side)
-        # the warm-up's cached blocks go back to the card, so that what is
-        # reserved from here on is the graph's own pool
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        alloc0 = torch.cuda.memory_allocated(dev)
-        reserved0 = torch.cuda.memory_reserved(dev)
-        counts0 = build.launch_counts()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            out = fn(*args)
+        stream = _capture_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        pool = torch.cuda.graph_pool_handle()
+        self.segments: List[_Segment] = []
+        with torch.cuda.stream(stream):
+            if warm_up:
+                run_eagerly(fn(*args))
+            # what is reserved from here on is the pool's: a capture
+            # allocates from it alone, never from the allocator's cache
+            alloc0 = torch.cuda.memory_allocated(dev)
+            reserved0 = torch.cuda.memory_reserved(dev)
+            counts0 = build.launch_counts()
+            gen = _segments(fn, args)
+            sent = None
+            while True:
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool, capture_error_mode="thread_local")
+                try:
+                    call, out = gen.send(sent), None
+                except StopIteration as stop:
+                    call, out = None, stop.value
+                finally:
+                    graph.capture_end()
+                if call is None:
+                    self.segments.append(_Segment(graph, None, []))
+                    break
+                # the eager call reads this segment's outputs: they are made
+                # (a call on garbage could fail), outside any capture
+                graph.replay()
+                res, res_spec = pytree.tree_flatten(call.fn(*call.args))
+                results = [t.clone() for t in res]
+                self.segments.append(_Segment(graph, call, results))
+                sent = pytree.tree_unflatten(results, res_spec)
+        torch.cuda.current_stream(dev).wait_stream(stream)
         counts1 = build.launch_counts()
         self.static_out, self.out_spec = pytree.tree_flatten(out)
         if not all(isinstance(t, torch.Tensor) for t in self.static_out):
             raise TypeError("a graph's function must return tensors only")
         torch.cuda.synchronize(dev)
+        calls = [sg for sg in self.segments if sg.call is not None]
         self._stats = GraphStats(
             key=key, capture_s=time.perf_counter() - t0,
             kept_bytes=in_bytes + torch.cuda.memory_allocated(dev) - alloc0,
@@ -127,7 +237,9 @@ class _Graph:
             launches={k: counts1[k] - counts0[k] for k in counts1
                       if counts1[k] != counts0[k]},
             inputs=len(self.static_in), outputs=len(self.static_out),
-            replays=0)
+            replays=0, capture_at=capture_at, eager_calls=capture_at - 1,
+            segments=len(self.segments), eager_between=len(calls),
+            between_copies=sum(len(sg.results) for sg in calls))
         self.replays = 0
         self._lock = threading.Lock()
         self._done = torch.cuda.Event()     # the last call's clones taken
@@ -142,7 +254,12 @@ class _Graph:
             stream.wait_event(self._done)   # a call on another stream
             for s, t in zip(self.static_in, leaves):
                 s.copy_(t)
-            self.graph.replay()
+            for sg in self.segments:
+                sg.graph.replay()
+                if sg.call is not None:
+                    res = pytree.tree_leaves(sg.call.fn(*sg.call.args))
+                    for s, t in zip(sg.results, res):
+                        s.copy_(t)
             out = [t.clone() for t in self.static_out]
             self._done.record(stream)
             self.replays += 1
@@ -158,14 +275,26 @@ class GraphCache:
     shapes, dtypes and device of the tensors in args). args: tensors, or
     tuples / NamedTuples / dicts of tensors, on one CUDA device; a CPU
     tensor raises. key: hashable, standing for everything else fn depends
-    on."""
+    on. fn may be a generator that yields Eager calls (see the module's
+    docstring).
 
-    def __init__(self, max_bytes: int):
+    capture_at, an internal choice of the entry point by whether its shapes
+    follow the data: the call of a key that captures it, 1 or 2. At 2 the
+    key's first call runs fn eagerly (and is the capture's warm-up; the
+    module's docstring)."""
+
+    def __init__(self, max_bytes: int, capture_at: int = 1):
+        if capture_at not in (1, 2):
+            raise ValueError(f"capture_at must be 1 or 2, got {capture_at}")
         self.max_bytes = max_bytes
+        self.capture_at = capture_at
         self._graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
+        self._seen: "OrderedDict[tuple, None]" = OrderedDict()
         self._lock = threading.Lock()
         self.captures = 0          # graphs captured since the cache was made
         self.capture_s = 0.0       # and the seconds those captures took
+        self.eager_calls = 0       # first calls of keys run eagerly
+        self.replays = 0           # calls that replayed a graph
 
     def __call__(self, key, fn: Callable, *args):
         leaves, spec = pytree.tree_flatten(args)
@@ -181,14 +310,33 @@ class GraphCache:
         full = (key, tuple((tuple(t.shape), t.dtype) for t in leaves),
                 dev.index)
         with torch.cuda.device(dev):
-            with self._lock:
-                g = self._graphs.get(full)
-                if g is None:
-                    with _capture_lock:
-                        g = self._add(full, _Graph(full, fn, leaves, spec))
-                else:
-                    self._graphs.move_to_end(full)
+            g = self._get(full, lambda: _Graph(
+                full, fn, leaves, spec, self.capture_at,
+                warm_up=self.capture_at == 1))
+            if g is None:
+                return run_eagerly(fn(*args))
             return g(leaves)
+
+    def _get(self, key, make: Callable):
+        """The graph of `key`, made by make() where the key is due its
+        capture; None where its call runs eagerly (a key's first call, when
+        capture_at is 2)."""
+        with self._lock:
+            g = self._graphs.get(key)
+            if g is not None:
+                self._graphs.move_to_end(key)
+            elif self.capture_at > 1 and key not in self._seen:
+                self._seen[key] = None
+                while len(self._seen) > SEEN_KEYS:
+                    self._seen.popitem(last=False)
+                self.eager_calls += 1
+            else:
+                self._seen.pop(key, None)
+                with _capture_lock:
+                    g = self._add(key, make())
+            if g is not None:
+                self.replays += 1
+            return g
 
     def _add(self, key, graph):
         self._graphs[key] = graph
@@ -217,5 +365,6 @@ class GraphCache:
         device."""
         with self._lock, _capture_lock:
             self._graphs.clear()
+            self._seen.clear()
             if torch.cuda.is_initialized():
                 torch.cuda.empty_cache()

@@ -87,6 +87,12 @@ def _fill_other(buckets) -> None:
     buckets["OTHER"] = max(buckets["TOTAL"] - inside, 0.0)
 
 
+# the CUDA runtime and driver calls that put work on the device, as the
+# profiler names them
+_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cudaMemcpy",
+                 "cudaMemset")
+
+
 def device_profile(fn, *args, device="cuda", runs: int = 5):
     """One warm-up call of fn(*args), then `runs` calls under torch.profiler.
     A dict, every number per call:
@@ -104,6 +110,9 @@ def device_profile(fn, *args, device="cuda", runs: int = 5):
       conversion). A stage that never ran reads 0.
     - `busy_ms`: the device work of the call (stages["TOTAL"] on a card,
       0 on the CPU), and `launches`: how many pieces of work it ran.
+    - `host_launches`: the host's calls that put work on the device (the
+      CUDA runtime's kernel, graph, copy and fill launches; a graph's
+      replay is one), 0 on the CPU.
     - `by_kernel`: {name: [ms, launches]} of that work, largest first.
     - `host_stages`: the same buckets in the spans' CPU time (on the CPU,
       `stages` itself).
@@ -128,10 +137,15 @@ def device_profile(fn, *args, device="cuda", runs: int = 5):
 
     spans = set(REFERENCE_BUCKETS) | {_CALL_SPAN}
     host = OrderedDict((b, 0.0) for b in REFERENCE_BUCKETS)
+    host_launches = 0.0
     for ev in prof.events():
-        if ev.name in spans and str(ev.device_type) == "DeviceType.CPU":
+        if str(ev.device_type) != "DeviceType.CPU":
+            continue
+        if ev.name in spans:
             key = "TOTAL" if ev.name == _CALL_SPAN else ev.name
             host[key] += ev.cpu_time_total / 1e3 / runs
+        elif ev.name.startswith(_LAUNCH_CALLS):
+            host_launches += 1.0 / runs
     _fill_other(host)
     buckets = host
     by_kernel: Dict[str, list] = {}
@@ -160,6 +174,7 @@ def device_profile(fn, *args, device="cuda", runs: int = 5):
         stages=buckets, host_stages=host,
         busy_ms=buckets["TOTAL"] if on_card else 0.0,
         launches=sum(n for _, n in by_kernel.values()),
+        host_launches=host_launches,
         by_kernel=dict(sorted(by_kernel.items(), key=lambda kv: -kv[1][0])),
         wall_ms=wall)
 

@@ -254,3 +254,328 @@ def test_clear_cache_frees_the_pipeline_graphs(card, frames):
     tpyr.run_pipeline_jit.clear_cache()
     assert len(tpyr._PIPELINE_GRAPHS) == 0
     assert torch.cuda.memory_allocated(card) < held
+
+
+# ---------------------------------------------------------------------------
+# the re-entry program, the matcher, the RANSAC cores, the pose-graph step
+# ---------------------------------------------------------------------------
+
+from hessgpu_tpu_torch import describe as tdesc  # noqa: E402
+from hessgpu_tpu_torch import describe_keypoints, describe_rectangles  # noqa
+from hessgpu_tpu_torch import detect_and_describe, to_numpy_trimmed  # noqa
+from hessgpu_tpu_torch import matcher as tm  # noqa: E402
+from hessgpu_tpu_torch.sfm import posegraph as tpg  # noqa: E402
+from hessgpu_tpu_torch.sfm import twoview as ttv  # noqa: E402
+
+
+def _equal(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return _same(a, b)
+    return np.array_equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def reentry(card):
+    """texture_frame(0) at 480x640, its own features (x, y, sigma, theta),
+    and frame 1's."""
+    out = []
+    for s in (0, 1):
+        img = texture_frame(s, 480, 640)
+        f = to_numpy_trimmed(detect_and_describe(img, SiftConfig())[0])
+        out.append((img, np.stack([f["x"], f["y"], f["sigma"], f["theta"]],
+                                  axis=1)))
+    return out
+
+
+@pytest.mark.parametrize("given_theta", [True, False])
+def test_reentry_replay_equals_eager(card, reentry, given_theta):
+    img, keys = reentry[0]
+    k = keys if given_theta else keys[:, :3]
+    describe_keypoints.clear_cache()
+    with disable_graphs():
+        want = describe_keypoints(img, k, has_orientation=given_theta)
+    for _ in range(3):
+        assert _equal(describe_keypoints(img, k, has_orientation=given_theta),
+                      want)
+    st = tdesc._DESCRIBE_GRAPHS.stats()
+    assert len(st) == 1 and st[0].replays == 3
+    cfg = SiftConfig()
+    n_oct = make_plan(480, 640, cfg).num_octaves
+    assert st[0].launches == {
+        "blur": 1, "octave_chain": n_oct, "detect_octave": n_oct,
+        "descriptor": 1, **({} if given_theta else {"orientation": 1})}
+    # the replay's first n slots of the bucket equal an unpadded eager run
+    arr, plan, cfg = tdesc.prepare_input(img, cfg, card)
+    kt = keys[:, 3] if given_theta else np.zeros(len(keys), np.float32)
+    with disable_graphs():
+        theta, desc = tdesc._describe_padded(
+            arr, plan, cfg, keys[:, 0], keys[:, 1], keys[:, 2], kt,
+            given_theta, len(keys))
+    np.testing.assert_array_equal(want["desc"], desc)
+    if not given_theta:
+        np.testing.assert_array_equal(
+            want["theta"], np.mod(tdesc.TWO_PI - theta, tdesc.TWO_PI))
+
+
+def test_reentry_new_inputs_without_aliasing(card, reentry):
+    (img0, k0), (img1, k1) = reentry
+    n = min(len(k0), len(k1))
+    k0, k1 = k0[:n], k1[:n]           # one bucket: one graph for both
+    a = describe_keypoints(img0, k0)
+    kept = {k: v.copy() for k, v in a.items()}
+    b = describe_keypoints(img1, k1)
+    with disable_graphs():
+        want_b = describe_keypoints(img1, k1)
+    assert _equal(b, want_b) and _equal(a, kept)
+    assert not np.array_equal(a["desc"], b["desc"])
+
+
+def test_rectangles_replay_equals_eager(card, reentry):
+    img = reentry[0][0]
+    rects = np.array([[100, 100, 40, 60], [300, 200, 80, 80],
+                      [10, 20, 20, 30]], np.float32)
+    with disable_graphs():
+        want = describe_rectangles(img, rects)
+    for _ in range(3):
+        assert _equal(describe_rectangles(img, rects), want)
+
+
+def test_threads_describing_through_one_graph(card, reentry):
+    """Two threads (the server's clients) describe their own frames'
+    keypoints, cut to one bucket, through one re-entry graph."""
+    (img0, k0), (img1, k1) = reentry
+    n = min(len(k0), len(k1))
+    inputs = [(img0, k0[:n]), (img1, k1[:n])]
+    with disable_graphs():
+        want = [describe_keypoints(*x) for x in inputs]
+    describe_keypoints(*inputs[0])            # captured before the threads
+    captures = tdesc._DESCRIBE_GRAPHS.captures
+    wrong, errors = [0, 0], []
+    start = threading.Barrier(2)
+
+    def client(i):
+        try:
+            start.wait()
+            for _ in range(40):
+                if not _equal(describe_keypoints(*inputs[i]), want[i]):
+                    wrong[i] += 1
+        except Exception as e:                # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in (0, 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors and wrong == [0, 0]
+    assert tdesc._DESCRIBE_GRAPHS.captures == captures
+
+
+def _match_inputs(card, seed, n1=2048, n2=2048):
+    g = torch.Generator().manual_seed(seed)
+    d1 = torch.randint(0, 64, (n1, 128), generator=g, dtype=torch.uint8)
+    d2 = torch.randint(0, 64, (n2, 128), generator=g, dtype=torch.uint8)
+    d2[: n2 // 2] = d1[: n2 // 2]             # half of them match
+    loc1 = torch.rand(n1, 2, generator=g) * 600
+    loc2 = torch.rand(n2, 2, generator=g) * 600
+    loc2[: n2 // 2] = loc1[: n2 // 2] + 1.0
+    return [x.to(card) for x in (d1, d2, loc1, loc2)]
+
+
+def _second_call_replays(cache, call):
+    """call() through a capture_at=2 cache: eager, captured, replayed; each
+    returned."""
+    eager0, cap0 = cache.eager_calls, cache.captures
+    first = call()
+    assert (cache.eager_calls, cache.captures) == (eager0 + 1, cap0)
+    second = call()
+    assert cache.captures == cap0 + 1
+    return [first, second, call()]
+
+
+def _first_call_replays(cache, call):
+    """call() through a cache that captures a key at its first call:
+    captured, replayed, replayed; each returned."""
+    eager0, cap0 = cache.eager_calls, cache.captures
+    first = call()
+    assert (cache.eager_calls, cache.captures) == (eager0, cap0 + 1)
+    return [first, call(), call()]
+
+
+@pytest.mark.parametrize("mutual", [True, False])
+def test_match_replay_equals_eager(card, mutual):
+    """At sizes off the bucket (2000 x 1900 in a 2048 x 2048 graph), so the
+    padded rows and columns are exercised."""
+    d1, d2, loc1, loc2 = _match_inputs(card, 0, 2000, 1900)
+    v1 = torch.ones(len(d1), dtype=torch.bool, device=card)
+    v2 = torch.ones(len(d2), dtype=torch.bool, device=card)
+    H, F = torch.eye(3, device=card), torch.eye(3, device=card)
+    tm._match_core.clear_cache()
+    with disable_graphs():
+        gate = tm._guided_gate(loc1, loc2, H, 4.0, F, 1e20)
+        want = tm._match_core(d1, d2, v1, v2, 0.7, 0.8, mutual)
+        want_g = tm._match_core(d1, d2, v1, v2, 0.7, 0.8, mutual, gate)
+    assert 0 < int((want >= 0).sum()) and 0 < int(gate.sum()) < gate.numel()
+    for got in _first_call_replays(tm._MATCH_GRAPHS, lambda: tm._guided_gate(
+            loc1, loc2, H, 4.0, F, 1e20)):
+        assert _same(got, gate)
+    for got in _first_call_replays(tm._MATCH_GRAPHS, lambda: tm._match_core(
+            d1, d2, v1, v2, 0.7, 0.8, mutual)):
+        assert _same(got, want)
+    for got in _first_call_replays(tm._MATCH_GRAPHS, lambda: tm._match_core(
+            d1, d2, v1, v2, 0.7, 0.8, mutual, gate)):
+        assert _same(got, want_g)
+    # thresholds are inputs, not frozen into the graph
+    with disable_graphs():
+        want2 = tm._match_core(d1, d2, v1, v2, 0.3, 0.6, mutual)
+    got2 = tm._match_core(d1, d2, v1, v2, 0.3, 0.6, mutual)
+    assert _same(got2, want2) and not _same(want2, want)
+    st = tm._MATCH_GRAPHS.stats()
+    assert len(st) == 3 and all(s.eager_calls == 0 and s.capture_at == 1
+                                and s.key[1][0][0][0] == 2048
+                                for s in st)
+
+
+def test_sizes_in_one_bucket_share_its_graph(card):
+    """Sizes padded to one bucket replay one graph, called in turns with
+    other buckets' graphs, and each gives its own eager result."""
+    tm._match_core.clear_cache()
+    cap0 = tm._MATCH_GRAPHS.captures
+    sizes = [(600, 500), (610, 505), (590, 620), (2048, 2048)]
+    inputs = []
+    for i, (n1, n2) in enumerate(sizes):
+        d1, d2, _, _ = _match_inputs(card, 10 + i, n1, n2)
+        v1 = torch.ones(n1, dtype=torch.bool, device=card)
+        v2 = torch.ones(n2, dtype=torch.bool, device=card)
+        inputs.append((d1, d2, v1, v2))
+    with disable_graphs():
+        want = [tm._match_core(*x, 0.7, 0.8) for x in inputs]
+    for _ in range(3):
+        for x, w in zip(inputs, want):
+            assert _same(tm._match_core(*x, 0.7, 0.8), w)
+    # (1024, 512) twice, (1024, 1024), (2048, 2048)
+    st = tm._MATCH_GRAPHS.stats()
+    assert len(st) == 3 and tm._MATCH_GRAPHS.captures - cap0 == 3
+    assert sorted(s.replays for s in st) == [3, 3, 6]
+
+
+def test_match_new_inputs_without_aliasing(card):
+    a_in, b_in = _match_inputs(card, 1), _match_inputs(card, 2)
+    ones = torch.ones(2048, dtype=torch.bool, device=card)
+    call = lambda d: tm._match_core(d[0], d[1], ones, ones, 0.7, 0.8)  # noqa
+    call(a_in)
+    a = call(a_in)                            # replayed
+    kept = a.clone()
+    b = call(b_in)
+    with disable_graphs():
+        want_b = call(b_in)
+    assert _same(b, want_b) and _same(a, kept)
+    assert a.data_ptr() != b.data_ptr()
+
+
+def _ransac_scene(card, seed, n=300):
+    rng = np.random.RandomState(seed)
+    X = rng.uniform(-1, 1, (n, 3))
+    X[:, 2] += 5.0
+    Kn = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
+    a = 0.1
+    R2 = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                   [-np.sin(a), 0, np.cos(a)]])
+
+    def project(R, tt):
+        xc = X @ R.T + tt
+        return xc[:, :2] / xc[:, 2:] * 500.0 + [320.0, 240.0]
+
+    p1 = project(np.eye(3), np.zeros(3)) + rng.normal(0, 0.3, (n, 2))
+    p2 = project(R2, np.array([-0.5, 0.0, 0.0])) + rng.normal(0, 0.3, (n, 2))
+    p2[: n // 10] += rng.uniform(20, 60, (n // 10, 2))
+    g = torch.Generator().manual_seed(seed)
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=card)  # noqa
+    return dict(X=f32(X), p1=f32(p1), p2=f32(p2), K=f32(Kn),
+                valid=torch.ones(n, dtype=torch.bool, device=card),
+                fidx=torch.randint(0, n, (512, 8), generator=g).to(card),
+                pidx=torch.randint(0, n, (256, 6), generator=g).to(card))
+
+
+def test_ransac_fundamental_replay_equals_eager(card):
+    s = _ransac_scene(card, 0)
+    args = (s["fidx"], s["p1"], s["p2"], s["valid"])
+    ttv.ransac_fundamental_from_samples.clear_cache()
+    with disable_graphs():
+        want = ttv.ransac_fundamental_from_samples(*args)
+    assert int(want.num_inliers) >= 250
+    for got in _second_call_replays(
+            ttv._RANSAC_F_GRAPHS,
+            lambda: ttv.ransac_fundamental_from_samples(*args)):
+        assert _equal(tuple(got), tuple(want))
+    st = ttv._RANSAC_F_GRAPHS.stats()[0]
+    assert (st.segments, st.eager_between) == (5, 4)
+    other = _ransac_scene(card, 1)
+    args2 = (other["fidx"], other["p1"], other["p2"], other["valid"])
+    kept = [x.clone() for x in want]
+    got2 = ttv.ransac_fundamental_from_samples(*args2)
+    with disable_graphs():
+        assert _equal(tuple(got2),
+                      tuple(ttv.ransac_fundamental_from_samples(*args2)))
+    assert _equal(kept, list(want))
+
+
+def test_ransac_pnp_replay_equals_eager(card):
+    s = _ransac_scene(card, 0)
+    args = (s["pidx"], s["X"], s["p2"], s["valid"], s["K"])
+    ttv.ransac_pnp_from_samples.clear_cache()
+    with disable_graphs():
+        want = ttv.ransac_pnp_from_samples(*args)
+    assert int(want.num_inliers) >= 100
+    for _ in range(3):
+        assert _equal(tuple(ttv.ransac_pnp_from_samples(*args)), tuple(want))
+    st = ttv._PNP_GRAPHS.stats()
+    assert len(st) == 1 and (st[0].segments, st[0].eager_between) == (3, 2)
+    other = _ransac_scene(card, 1)
+    args2 = (other["pidx"], other["X"], other["p2"], other["valid"],
+             other["K"])
+    got2 = ttv.ransac_pnp_from_samples(*args2)
+    with disable_graphs():
+        assert _equal(tuple(got2), tuple(ttv.ransac_pnp_from_samples(*args2)))
+    assert len(ttv._PNP_GRAPHS) == 1
+
+
+def test_pose_graph_replay_equals_eager(card):
+    """A 12-camera loop with odometry and two loop closures, every pose but
+    the gauge drifted (as tests/test_torch_sfm_posegraph.py's), so that the
+    steps move it."""
+    from hessgpu_tpu_torch.sfm.ba import so3_exp
+    C = 12
+    rng = np.random.RandomState(42)
+    rot = lambda w: so3_exp(torch.tensor(w, dtype=torch.float32)[None]
+                            )[0].double().numpy()                  # noqa
+    Rs = np.stack([rot([0.0, 0.3 * c, 0.0]) for c in range(C)])
+    ts = np.stack([[np.cos(0.3 * c), 0.1 * c % 0.5, np.sin(0.3 * c)]
+                   for c in range(C)])
+    edges = [(c, c + 1) for c in range(C - 1)] + [(0, C - 1), (0, C // 2)]
+    ei, ej = (np.array(e) for e in zip(*edges))
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=card)  # noqa
+    graph = tpg.PoseGraph(
+        edge_i=torch.as_tensor(ei, device=card),
+        edge_j=torch.as_tensor(ej, device=card),
+        R_ij=f32(np.stack([Rs[j] @ Rs[i].T for i, j in edges])),
+        t_ij=f32(np.stack([ts[j] - Rs[j] @ Rs[i].T @ ts[i]
+                           for i, j in edges])),
+        weight=f32(np.ones(len(edges))))
+    Rp, tp = Rs.copy(), ts.copy()
+    for c in range(1, C):
+        Rp[c] = rot(0.05 * rng.randn(3)) @ Rp[c]
+        tp[c] = tp[c] + 0.1 * rng.randn(3)
+    R0, t0 = f32(Rp), f32(tp)
+    tpg.optimize_pose_graph.clear_cache()
+    with disable_graphs():
+        want = tpg.optimize_pose_graph(R0, t0, graph)
+    assert float((want[1] - t0).abs().max()) > 1e-2
+    for _ in range(2):
+        assert _equal(tpg.optimize_pose_graph(R0, t0, graph), want)
+    st = tpg._STEP_GRAPHS.stats()
+    assert len(st) == 1 and st[0].replays == 40 and st[0].segments == 1
