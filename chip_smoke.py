@@ -110,8 +110,11 @@ wrapper counts its launches. Phases, one JSON line each:
              process (launches pinned, bit-equal to detect_batch without a
              mesh; ms in turns with mesh=None), and over a 2-rank gloo group
              on this one card (gloo_rank: its collectives take the CUDA
-             tensors): detect_batch bit-equal to mesh=None, the 4032x6048
-             frame's 2-band table bit-equal to the in-process one,
+             tensors; the graphs on, as a user's process has them: the
+             mesh caches capture nothing, each rank's batch shard replays
+             the one-device graph): detect_batch bit-equal to mesh=None,
+             the 4032x6048 frame's 2-band table bit-equal to the
+             in-process one,
              bundle_adjust_sharded within 1e-4 relative of the in-process
              2-shard run (all_reduce's order; 10 LM steps of 30 CG steps
              carry the last bits); each rank's ms
@@ -160,7 +163,22 @@ wrapper counts its launches. Phases, one JSON line each:
              in turns), guided (the gate and the gated match), ransac_f
              (the sequence's first pair with its JAX draws), pnp (300
              seeded correspondences in a bucket of 512), posegraph (a
-             drifted 12-camera loop, 20 steps); the sfm sequence in
+             drifted 12-camera loop, 20 steps); then the mesh boundaries
+             on in-process meshes (compiled_mesh), the same report each:
+             the 4032x6048 frame over 1, 2 and 4 bands (the graph's
+             launches pinned, EXPECTED_SPATIAL; its pool beside the eager
+             call's peak; the three graphs held at once; every kernel
+             inside the 4-band replay bit-equal to its eager launch), the
+             B=16 batch over 2 shards (every shard's launches, each kernel
+             bit-equal to its eager launch, equal to mesh=None),
+             dryrun_multichip(8) (three calls through the graphs equal to
+             eager, captures by cache), the sharded LM step over 2 and 8
+             shards (three chained steps bit-equal, LM iterations/s in
+             turns), match_sharded at 16384^2 mutual and guided and at
+             65536^2 (its first call eager, its second captured), and the
+             sfm sequence with a 2-shard mesh, eager and through the
+             graphs, each a first pass (40 of 40, ATE within the limit,
+             bit-equal); the sfm sequence in
              SFM_TURNS, each run a first pass (every cache it uses emptied
              first): eager, then with the pipeline's and the LM step's
              graphs alone ("base") and with every graph ("all") in turns
@@ -192,6 +210,8 @@ wrapper counts its launches. Phases, one JSON line each:
   {"ok": true, "device": {...}}
 """
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -319,6 +339,12 @@ BIG_HEIGHT, BIG_WIDTH = 2400, 3200
 # orientation and one descriptor launch over every level and band
 EXPECTED_SPATIAL = {"blur": 33, "octave_chain": 0, "downsample2": 7,
                     "detect_octave": 8, "orientation": 1, "descriptor": 1}
+# the same as a graph's launches (read at its capture: the kernels launched
+# at least once)
+EXPECTED_SPATIAL_GRAPH = {k: n for k, n in EXPECTED_SPATIAL.items() if n}
+# the compiled phase's match_sharded: MESH_MATCH_N^2 of match_tiled's
+# descriptors, mutual and guided, and its whole MT_N^2 table
+MESH_MATCH_N = 16384
 # the kernels' symbols in a profiler's trace
 KERNEL_SYMBOL = {"blur": "blur_kernel", "octave_chain": "chain_kernel",
                  "downsample2": "downsample2_kernel",
@@ -419,15 +445,22 @@ def gloo_rank(rank, world, url, frames, image, ba_np, out_dir):
     the one card in a gloo group whose collectives take the CUDA tensors
     themselves (nccl refuses two ranks on one device). Runs detect_batch,
     the row-sharded detect + describe and bundle_adjust_sharded over the
-    group and saves its results and times."""
+    group, with the graphs on as a user's process has them (a process
+    group's mesh takes the eager route: the mesh caches capture nothing;
+    its batch shard replays the one-device pipeline graph), and saves its
+    results, times and each cache's captures."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from hessgpu_tpu_torch import SiftConfig, detect_batch
+    from hessgpu_tpu_torch import pyramid as tpyr
     from hessgpu_tpu_torch.convert import ba_from_numpy
+    from hessgpu_tpu_torch.parallel import batch as tbatch
+    from hessgpu_tpu_torch.parallel import spatial as tsp
     from hessgpu_tpu_torch.parallel.distributed import device_mesh
     from hessgpu_tpu_torch.parallel.spatial import sharded_detect_and_describe
+    from hessgpu_tpu_torch.sfm import distributed_ba as tdba
     from hessgpu_tpu_torch.sfm.distributed_ba import bundle_adjust_sharded
 
     torch.cuda.set_device(0)
@@ -464,17 +497,13 @@ def gloo_rank(rank, world, url, frames, image, ba_np, out_dir):
                     for k, v in spatial._asdict().items()})
         res.update({f"ba_{k}": v.cpu().numpy()
                     for k, v in out._asdict().items()})
+        caches = (tbatch._MESH_BATCH_GRAPHS, tsp._SPATIAL_GRAPHS,
+                  tdba._SHARDED_LM_GRAPHS, tpyr._PIPELINE_GRAPHS)
         np.savez(f"{out_dir}/rank{rank}.npz", ba_cost=cost,
-                 batch_ms=batch_ms, spatial_ms=spatial_ms, **res)
+                 batch_ms=batch_ms, spatial_ms=spatial_ms,
+                 captures=[c.captures for c in caches], **res)
     finally:
         dist.destroy_process_group()
-
-
-def gloo_rank_eager(*args):
-    """gloo_rank on the eager route, as the parent's phases run."""
-    from hessgpu_tpu_torch.utils.graphs import disable_graphs
-    with disable_graphs():
-        gloo_rank(*args)
 
 
 def server_clients_at_once(r, port, images, sequential):
@@ -720,7 +749,7 @@ def mesh_phases(dev, smi_line, same, max_abs, launches_by_path, frames,
     workdir = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
     try:
         t0 = time.perf_counter()
-        mp.start_processes(gloo_rank_eager, args=(
+        mp.start_processes(gloo_rank, args=(
             2, f"file://{workdir}/rendezvous", frames, image, ba_np, workdir),
             nprocs=2, join=True, start_method="spawn")
         gloo_s = time.perf_counter() - t0
@@ -746,10 +775,18 @@ def mesh_phases(dev, smi_line, same, max_abs, launches_by_path, frames,
         if ba_rel > 1e-4:
             fail(f"batch_mesh: gloo rank {r}: BA state {ba_rel} relative "
                  "from the in-process 2-shard run")
+        mesh_caps, pipeline_caps = res["captures"][:3].tolist(), \
+            int(res["captures"][3])
+        if any(mesh_caps):
+            fail(f"batch_mesh: gloo rank {r}: the mesh caches (batch, "
+                 f"spatial, sharded LM) captured {mesh_caps} graphs on a "
+                 "process group")
         gloo[f"rank{r}"] = dict(
             batch_ms=res["batch_ms"].tolist(),
             spatial_ms=res["spatial_ms"].tolist(),
-            ba_cost=float(res["ba_cost"]), ba_max_rel_diff=ba_rel)
+            ba_cost=float(res["ba_cost"]), ba_max_rel_diff=ba_rel,
+            mesh_cache_captures=mesh_caps,
+            pipeline_graph_captures=pipeline_caps)
     emit("batch_mesh", batch=int(frames.shape[0]), height=HEIGHT,
          width=WIDTH, shards=BATCH_MESH, launches=launches,
          bit_equal_to_mesh_none=True, mesh_none_ms=none_ms,
@@ -793,27 +830,13 @@ def mesh_phases(dev, smi_line, same, max_abs, launches_by_path, frames,
     return kernel_ms
 
 
-def compiled_boundaries(dev, smi_line, same, frames, seq, eager, sync,
-                        in_turns):
-    """The compiled phase's boundaries past the pipeline and the LM step:
-    the keypoint re-entry program (describe_keypoints, describe_rectangles),
-    the matcher (_match_core, _guided_gate), the RANSAC cores (fundamental,
-    PnP) and the pose-graph step, each replayed against its eager route.
-    Returns the kernel launches that the re-entry graphs hold, by path."""
+def boundary_checks(same, eager, in_turns):
+    """(equal, boundary): equal(a, b) compares results field by field, bit
+    for bit; boundary(what, cache, call) holds a graph entry point's calls
+    to its eager route and reports what the key's graph costs."""
     import numpy as np
     import torch
 
-    from hessgpu_tpu_torch import (SiftConfig, SiftMatcher,
-                                   describe_keypoints, describe_rectangles,
-                                   detect_and_describe, to_numpy_trimmed)
-    from hessgpu_tpu_torch import describe as tdesc
-    from hessgpu_tpu_torch import matcher as tm
-    from hessgpu_tpu_torch.ops.cuda import patch as kpatch
-    from hessgpu_tpu_torch.sfm import incremental as tinc
-    from hessgpu_tpu_torch.sfm import posegraph as tpg
-    from hessgpu_tpu_torch.sfm import twoview as ttv
-    from hessgpu_tpu_torch.sfm.ba import so3_exp
-    from hessgpu_tpu_torch.utils.graphs import disable_graphs
     from hessgpu_tpu_torch.utils.timing import device_profile
 
     def equal(a, b):
@@ -855,6 +878,32 @@ def compiled_boundaries(dev, smi_line, same, frames, seq, eager, sync,
             graph_kernel_launches=st.launches, **extra)
         return want, report
 
+    return equal, boundary
+
+
+def compiled_boundaries(dev, smi_line, same, frames, seq, eager, sync,
+                        in_turns):
+    """The compiled phase's boundaries past the pipeline and the LM step:
+    the keypoint re-entry program (describe_keypoints, describe_rectangles),
+    the matcher (_match_core, _guided_gate), the RANSAC cores (fundamental,
+    PnP) and the pose-graph step, each replayed against its eager route.
+    Returns the kernel launches that the re-entry graphs hold, by path."""
+    import numpy as np
+    import torch
+
+    from hessgpu_tpu_torch import (SiftConfig, SiftMatcher,
+                                   describe_keypoints, describe_rectangles,
+                                   detect_and_describe, to_numpy_trimmed)
+    from hessgpu_tpu_torch import describe as tdesc
+    from hessgpu_tpu_torch import matcher as tm
+    from hessgpu_tpu_torch.sfm import incremental as tinc
+    from hessgpu_tpu_torch.sfm import posegraph as tpg
+    from hessgpu_tpu_torch.sfm import twoview as ttv
+    from hessgpu_tpu_torch.sfm.ba import so3_exp
+    from hessgpu_tpu_torch.utils.graphs import disable_graphs
+
+    equal, boundary = boundary_checks(same, eager, in_turns)
+
     cfg = SiftConfig()
     img, img1 = frames[0], frames[1]
     f0 = to_numpy_trimmed(detect_and_describe(img, cfg)[0])
@@ -889,68 +938,22 @@ def compiled_boundaries(dev, smi_line, same, frames, seq, eager, sync,
 
     # the five kernels inside the entry's own replay, each against its eager
     # launch: describe_keypoints' graph of _describe_all, captured with each
-    # stage's output kept (a tensor the capture made and that stays
+    # launch's output kept (a tensor the capture made and that stays
     # referenced keeps its place in the pool, and every replay rewrites it),
     # against the same entry inside disable_graphs()
     n = int(first.sum())
     cap = tdesc._bucket(n)
-
-    def describe_stages():
-        rec = {}
-        build_pyramid, gradients = tdesc._build_pyramid, \
-            tdesc.key_level_gradients
-        orientation, descriptor = kpatch.orientation, kpatch.descriptor
-
-        def pyramid(*a, **kw):
-            octaves = build_pyramid(*a, **kw)
-            rec.update(blur=octaves[0][:, 0],
-                       octave_chain=[o[:, 1:] for o in octaves],
-                       downsample2=[o[:, 0] for o in octaves[1:]],
-                       detect_octave=[])
-            return octaves
-
-        def grad(*a, **kw):
-            out = gradients(*a, **kw)
-            rec["detect_octave"].append(out)
-            return out
-
-        def orient(*a, **kw):
-            out = orientation(*a, **kw)
-            rec["orientation"] = out.thetas
-            return out
-
-        def desc(*a, **kw):
-            rec["descriptor"] = descriptor(*a, **kw)
-            return rec["descriptor"]
-
-        tdesc._build_pyramid, tdesc.key_level_gradients = pyramid, grad
-        kpatch.orientation, kpatch.descriptor = orient, desc
-        try:
-            out = describe_keypoints(img, keys[first, :3],
-                                     has_orientation=False)
-        finally:
-            tdesc._build_pyramid, tdesc.key_level_gradients = \
-                build_pyramid, gradients
-            kpatch.orientation, kpatch.descriptor = orientation, descriptor
-        return rec, out
-
+    call = lambda: describe_keypoints(img, keys[first, :3],  # noqa: E731
+                                      has_orientation=False)
     describe_keypoints.clear_cache()
-    with disable_graphs():
-        want, want_out = describe_stages()
+    want, want_out = record_kernel_outputs(eager(call))
     cap0 = tdesc._DESCRIBE_GRAPHS.captures
-    got, got_out = describe_stages()              # captured, replayed once
+    got, got_out = record_kernel_outputs(call)    # captured, replayed once
     if tdesc._DESCRIBE_GRAPHS.captures != cap0 + 1:
         fail("compiled: describe kernels: the entry captured no graph")
-    leaves = lambda a: [a] if isinstance(a, torch.Tensor) else [  # noqa
-        t for x in a for t in leaves(x)]
-    kernel_vs_eager = {}
-    for k in want:
-        if not equal(got[k], want[k]):
-            fail(f"compiled: describe: the {k} kernel inside the replay "
-                 "differs from its eager launch")
-        kernel_vs_eager[k] = max(
-            float((a.double() - b.double()).abs().max())
-            for a, b in zip(leaves(got[k]), leaves(want[k])))
+    kernel_vs_eager = kernel_outputs_vs_eager(
+        "describe kernels", got, want,
+        tdesc._DESCRIBE_GRAPHS.stats()[-1].launches)
     if not equal(got_out, want_out):
         fail("compiled: describe kernels: the entry's outputs differ")
     del got, want
@@ -1120,6 +1123,342 @@ def compiled_boundaries(dev, smi_line, same, frames, seq, eager, sync,
         fail(f"compiled: posegraph: the poses moved {moved}")
     emit("compiled", views=C, edges=len(edges), iterations=20,
          translation_moved=moved, **rep, nvidia_smi=smi_line)
+    return launches_by_path
+
+
+def record_kernel_outputs(call):
+    """call() with every kernel wrapper keeping a clone of what its launch
+    wrote, by kernel in launch order: detect_octave its maps and gradient
+    maps, orientation its thetas and peaks, the others their output (the
+    chain its whole stack, the next stack's base included). Under a capture
+    the clones are the graph's own tensors, which each replay rewrites.
+    Returns (rec, call's result)."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from hessgpu_tpu_torch.ops.cuda import conv as kconv
+    from hessgpu_tpu_torch.ops.cuda import detect as kdetect
+    from hessgpu_tpu_torch.ops.cuda import patch as kpatch
+
+    wrappers = {"blur": (kconv, "blur"), "downsample2": (kconv, "downsample2"),
+                "octave_chain": (kconv, "octave_chain_into"),
+                "detect_octave": (kdetect, "detect_octave"),
+                "orientation": (kpatch, "orientation"),
+                "descriptor": (kpatch, "descriptor")}
+    real = {k: getattr(*v) for k, v in wrappers.items()}
+    rec = {k: [] for k in wrappers}
+
+    def recording(name):
+        def run(*a, **kw):
+            out = real[name](*a, **kw)
+            kept = out[:2] if name == "orientation" else out
+            rec[name].append(pytree.tree_map(
+                lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+                kept))
+            return out
+        return run
+
+    for name, (mod, attr) in wrappers.items():
+        setattr(mod, attr, recording(name))
+    try:
+        out = call()
+    finally:
+        for name, (mod, attr) in wrappers.items():
+            setattr(mod, attr, real[name])
+    return rec, out
+
+
+def kernel_outputs_vs_eager(what, got, want, launches):
+    """Each kernel's outputs in a replay (the last `launches[k]` of got[k],
+    recorded at the capture) against its eager launches (want[k]), bit for
+    bit; the detect kernel's payload maps where its valid map is set (it
+    writes them nowhere else). Returns the max abs difference by kernel."""
+    import torch
+
+    diffs = {}
+    for k, ws in want.items():
+        n = launches.get(k, 0)
+        if n != len(ws):
+            fail(f"compiled: {what}: the graph holds {n} {k} launches, the "
+                 f"eager route made {len(ws)}")
+        if not n:
+            continue
+        worst = 0.0
+        for g, w in zip(got[k][-n:], ws):
+            if k == "detect_octave":
+                (gm, gg, gr), (wm, wg, wr) = g, w
+                pairs = [(gm.valid, wm.valid), (gg, wg), (gr, wr)]
+                if torch.equal(gm.valid, wm.valid):
+                    pairs += [(a[wm.valid], b[wm.valid])
+                              for a, b in zip(gm[1:], wm[1:])]
+            elif isinstance(w, tuple):
+                pairs = list(zip(g, w))
+            else:
+                pairs = [(g, w)]
+            for a, b in pairs:
+                if a.shape != b.shape or not torch.equal(a, b):
+                    fail(f"compiled: {what}: a {k} launch inside the replay "
+                         "differs from its eager launch")
+                if a.numel() and a.dtype.is_floating_point:
+                    worst = max(worst, float((a.double() - b.double())
+                                             .abs().max()))
+        diffs[k] = worst
+    return diffs
+
+
+def compiled_mesh(dev, smi_line, same, frames, ba_np, seq, eager, sync,
+                  in_turns):
+    """The compiled phase's mesh boundaries on in-process meshes: the JAX
+    package's five jit(shard_map) programs as captured graphs, each against
+    its eager route (inside disable_graphs). Returns the kernel launches
+    the spatial and batch graphs hold (read at their captures), by path."""
+    import numpy as np
+    import torch
+
+    from hessgpu_tpu_torch import SiftConfig, detect_batch
+    from hessgpu_tpu_torch import matcher as tm
+    from hessgpu_tpu_torch.convert import ba_from_numpy
+    from hessgpu_tpu_torch.entry import dryrun_multichip
+    from hessgpu_tpu_torch.parallel import batch as tbatch
+    from hessgpu_tpu_torch.parallel import distributed as tdist
+    from hessgpu_tpu_torch.parallel import spatial as tsp
+    from hessgpu_tpu_torch.sfm import ba as tba
+    from hessgpu_tpu_torch.sfm import distributed_ba as tdba
+    from hessgpu_tpu_torch.sfm import incremental as tinc
+    from hessgpu_tpu_torch.sfm import posegraph as tpg
+    from hessgpu_tpu_torch.sfm import twoview as ttv
+    from hessgpu_tpu_torch.sfm.evaluate import ate_rmse, camera_centers
+    from hessgpu_tpu_torch.sfm.synthetic import make_texture
+
+    equal, boundary = boundary_checks(same, eager, in_turns)
+    caches = {"spatial": tsp._SPATIAL_GRAPHS,
+              "batch_mesh": tbatch._MESH_BATCH_GRAPHS,
+              "ba_mesh": tdba._SHARDED_LM_GRAPHS,
+              "match_sharded": tdist._MATCH_SHARDED_GRAPHS}
+    clears = (tsp._sharded_program.clear_cache,
+              tbatch._sharded_batch_program.clear_cache,
+              tdba.make_sharded_lm_step.clear_cache,
+              tdist.match_sharded.clear_cache)
+    launches_by_path = {}
+
+    def eager_peak(call):
+        """The bytes an eager call allocates at its peak, and reserves."""
+        sync()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        eager(call)()
+        sync()
+        return (torch.cuda.max_memory_allocated() - a0,
+                torch.cuda.max_memory_reserved() - r0)
+
+    # ---- spatial: the 4032x6048 frame over 1, 2 and 4 in-process bands -----
+    image = make_texture(np.random.RandomState(SPATIAL_SEED), SPATIAL_W,
+                         SPATIAL_BLOBS)[:SPATIAL_H]
+    img = torch.from_numpy(image).to(dev)
+    cfg = SiftConfig()
+    spatial = tsp._SPATIAL_GRAPHS
+    for n in SPATIAL_MESHES:
+        mesh = tdist.local_mesh(n)
+        call = lambda mesh=mesh: tsp.sharded_detect_and_describe(  # noqa
+            img, cfg, mesh, with_aux=True)
+        peak = eager_peak(call)
+        want, rep = boundary(f"spatial n={n}", spatial, call)
+        if rep["graph_kernel_launches"] != EXPECTED_SPATIAL_GRAPH:
+            fail(f"compiled: spatial n={n}: the graph holds the launches "
+                 f"{rep['graph_kernel_launches']}, the eager path "
+                 f"{EXPECTED_SPATIAL_GRAPH}")
+        launches_by_path[f"spatial_replay_n{n}"] = rep["graph_kernel_launches"]
+        emit("compiled", height=SPATIAL_H, width=SPATIAL_W, shards=n,
+             features=int(want[0].count()), eager_peak_allocated_bytes=peak[0],
+             eager_peak_reserved_bytes=peak[1], **rep, nvidia_smi=smi_line)
+    # the 1-, 2- and 4-band graphs of the frame held at once
+    spatial_held = {f"n{g.key[0][3]}": g.pool_reserved_bytes
+                    for g in spatial.stats()}
+    if len(spatial_held) != len(SPATIAL_MESHES):
+        fail(f"compiled: spatial: the cache holds {spatial_held} after "
+             f"{len(SPATIAL_MESHES)} keys (bound {tsp.SPATIAL_GRAPH_BYTES})")
+    # every kernel inside the 4-band replay against its eager launch: a
+    # graph captured with each launch's output kept
+    mesh4 = tdist.local_mesh(SPATIAL_MESHES[-1])
+    call4 = lambda: tsp.sharded_detect_and_describe(img, cfg, mesh4)  # noqa
+    tsp._sharded_program.clear_cache()
+    want_k, want_t = record_kernel_outputs(eager(call4))
+    got_k, got_t = record_kernel_outputs(call4)   # captured, replayed once
+    st = spatial.stats()[-1]
+    diffs = kernel_outputs_vs_eager("spatial kernels", got_k, want_k,
+                                    st.launches)
+    if not equal(got_t, want_t):
+        fail("compiled: spatial kernels: the table differs from eager")
+    del got_k, want_k
+    tsp._sharded_program.clear_cache()
+    emit("compiled", what="spatial kernels", shards=SPATIAL_MESHES[-1],
+         graph="sharded_detect_and_describe's own (_sharded_program)",
+         replay_max_abs_vs_eager=diffs, pools_held_together=spatial_held,
+         spatial_graph_bytes=tsp.SPATIAL_GRAPH_BYTES, nvidia_smi=smi_line)
+    del img, want, want_t, got_t
+
+    # ---- batch_mesh: the main path's batch over 2 shards, and the dry run --
+    imgs = torch.from_numpy(frames).to(dev)
+    mesh = tdist.local_mesh(BATCH_MESH)
+    call = lambda: detect_batch(imgs, cfg, mesh=mesh)        # noqa: E731
+    want, rep = boundary(f"batch_mesh n={BATCH_MESH}",
+                         tbatch._MESH_BATCH_GRAPHS, call)
+    expected = {k: BATCH_MESH * v for k, v in EXPECTED_LAUNCHES_DEFAULT.items()
+                if v}
+    if rep["graph_kernel_launches"] != expected:
+        fail(f"compiled: batch_mesh: the graph holds the launches "
+             f"{rep['graph_kernel_launches']}, the eager path {expected}")
+    launches_by_path[f"batch_mesh_replay_n{BATCH_MESH}"] = \
+        rep["graph_kernel_launches"]
+    if not equal(want, detect_batch(imgs, cfg)):
+        fail("compiled: batch_mesh: the replay differs from mesh=None")
+    tbatch._sharded_batch_program.clear_cache()
+    want_k, _ = record_kernel_outputs(eager(call))
+    got_k, _ = record_kernel_outputs(call)
+    diffs = kernel_outputs_vs_eager(
+        "batch_mesh kernels", got_k, want_k,
+        tbatch._MESH_BATCH_GRAPHS.stats()[-1].launches)
+    del got_k, want_k
+    emit("compiled", batch=int(frames.shape[0]), height=HEIGHT, width=WIDTH,
+         shards=BATCH_MESH, equals_mesh_none=True,
+         kernels_replay_max_abs_vs_eager=diffs,
+         mesh_batch_graph_bytes=tbatch.MESH_BATCH_GRAPH_BYTES, **rep,
+         nvidia_smi=smi_line)
+    for clear in clears:
+        clear()
+    captures0 = {k: c.captures for k, c in caches.items()}
+
+    def dryrun():                   # its report line kept off stdout
+        with contextlib.redirect_stdout(io.StringIO()):
+            return dryrun_multichip(DRYRUN_SHARDS)
+
+    want = eager(dryrun)()
+    runs = [dryrun() for _ in range(3)]
+    if not all(equal(r, want) for r in runs):
+        fail(f"compiled: dryrun: {runs} through the graphs, eager {want}")
+    ms = in_turns(eager(dryrun), dryrun, BOUNDARY_WINDOW_S)
+    emit("compiled", what="dryrun", shards=DRYRUN_SHARDS, result=want,
+         calls_bit_equal_to_eager=3, ms_per_call_eager_graph_graph_eager=ms,
+         captures={k: c.captures - captures0[k] for k, c in caches.items()},
+         nvidia_smi=smi_line)
+
+    # ---- ba_mesh: bench_ba's problem, the sharded step over 2 and 8 --------
+    st0, pr = ba_from_numpy(device=dev, **ba_np)
+    lam0 = torch.tensor(1e-3, device=dev)
+    for n in BA_MESHES:
+        prob_n = tdba.pad_problem(pr, n)
+        step = tdba.make_sharded_lm_step(tdist.local_mesh(n),
+                                         cg_iters=BA_CG_ITERS)
+
+        def lm_run(iters, step=step, prob_n=prob_n):
+            s, lam, out = st0, lam0, []
+            for _ in range(iters):
+                s, lam, c0, c1 = step(s, lam, prob_n)
+                out.append((s, lam, c0, c1))
+            return out
+
+        _, rep = boundary(f"ba_mesh n={n}", tdba._SHARDED_LM_GRAPHS,
+                          lambda step=step, prob_n=prob_n:
+                          step(st0, lam0, prob_n))
+        e, g = eager(lm_run)(3), lm_run(3)
+        if not equal(e, g):
+            fail(f"compiled: ba_mesh n={n}: three replayed steps differ from "
+                 "three eager steps")
+        ba_ms = []
+        for run in (eager(lm_run), lm_run, lm_run, eager(lm_run)):
+            run(BA_WARMUP)
+            sync()
+            t0 = time.perf_counter()
+            run(BA_ITERS)
+            sync()
+            ba_ms.append((time.perf_counter() - t0) * 1e3 / BA_ITERS)
+        emit("compiled", cameras=BA_CAMS, points=BA_PTS,
+             observations=int(prob_n.uv.shape[0]), shards=n,
+             cg_iters=BA_CG_ITERS, three_steps_bit_equal=True,
+             ms_per_lm_iter_eager_graph_graph_eager=ba_ms,
+             lm_iters_per_s_eager=1e3 / min(ba_ms[0], ba_ms[3]),
+             lm_iters_per_s_graph=1e3 / min(ba_ms[1], ba_ms[2]), **rep,
+             nvidia_smi=smi_line)
+
+    # ---- match_sharded: 16384^2 mutual and guided, 65536^2 -----------------
+    rng = np.random.default_rng(0)
+    d = rng.standard_normal((MT_N, 128)).astype(np.float32)
+    d = np.abs(d) / np.linalg.norm(d, axis=1, keepdims=True)
+    q1 = torch.from_numpy((d * 512).astype(np.uint8)).to(dev)
+    q2 = torch.roll(q1, 7, 0)
+    del d
+    m = MESH_MATCH_N
+    loc1 = torch.from_numpy(rng.uniform(0, 4000, (m, 2)).astype(
+        np.float32)).to(dev)
+    loc2 = torch.roll(loc1, 7, 0) + 3.0
+    Hm = np.eye(3, dtype=np.float32)
+    Hm[:2, 2] = 3.0
+    cases = {
+        f"{m}^2 mutual": lambda: tdist.match_sharded(q1[:m], q2[:m]),
+        f"{m}^2 guided": lambda: tdist.match_sharded(
+            q1[:m], q2[:m], loc1=loc1, loc2=loc2, H=Hm, hdistmax=32.0),
+        f"{MT_N}^2 mutual": lambda: tdist.match_sharded(q1, q2)}
+    for name, call in cases.items():
+        peak = eager_peak(call)
+        want, rep = boundary(f"match_sharded {name}",
+                             tdist._MATCH_SHARDED_GRAPHS, call)
+        if rep["captures"] != 1 or rep["eager_first_calls"] != 1:
+            fail(f"compiled: match_sharded {name}: {rep['captures']} "
+                 f"captures, {rep['eager_first_calls']} eager first calls")
+        emit("compiled", matches=int((want >= 0).sum()),
+             key=list(map(str, tdist._MATCH_SHARDED_GRAPHS.stats()[-1]
+                          .key[0])),
+             eager_peak_allocated_bytes=peak[0],
+             eager_peak_reserved_bytes=peak[1],
+             match_sharded_graph_bytes=tdist.MATCH_SHARDED_GRAPH_BYTES,
+             **rep, nvidia_smi=smi_line)
+    del q1, q2, loc1, loc2, want
+
+    # ---- sfm_mesh: the sequence with a 2-shard mesh, eager and graphs ------
+    seq_feats, seq_K, seq_centers = seq
+    recs, turns = {}, {}
+    seq_clears = clears + (tba.lm_step.clear_cache, tm._match_core.clear_cache,
+                           ttv.ransac_fundamental_from_samples.clear_cache,
+                           ttv.ransac_pnp_from_samples.clear_cache,
+                           tpg.optimize_pose_graph.clear_cache)
+    for mode in ("eager", "graphs"):
+        for clear in seq_clears:              # a first pass
+            clear()
+        before = {k: (c.captures, c.replays) for k, c in caches.items()}
+        sync()
+        t0 = time.perf_counter()
+        run = lambda: tinc.reconstruct_sequence(  # noqa: E731
+            seq_feats, seq_K, mesh=tdist.local_mesh(SFM_MESH), device="cuda")
+        rec = eager(run)() if mode == "eager" else run()
+        sync()
+        seconds = time.perf_counter() - t0
+        if rec is None or rec.view_ids != list(range(len(seq_feats))):
+            fail(f"compiled: sfm_mesh ({mode}): registered "
+                 f"{None if rec is None else rec.view_ids}")
+        ate = ate_rmse(camera_centers(rec.R, rec.t),
+                       seq_centers[rec.view_ids])
+        if not ate <= 2 * JAX_SFM_ATE:
+            fail(f"compiled: sfm_mesh ({mode}): ATE {ate}, limit "
+                 f"{2 * JAX_SFM_ATE}")
+        recs[mode] = [np.stack(rec.R), np.stack(rec.t), rec.points]
+        turns[mode] = dict(
+            seconds=seconds, ate=ate, registered=rec.num_cameras,
+            captures={k: c.captures - before[k][0]
+                      for k, c in caches.items()},
+            replays={k: c.replays - before[k][1] for k, c in caches.items()})
+    if not all(np.array_equal(a, b) for a, b in zip(recs["eager"],
+                                                    recs["graphs"])):
+        fail("compiled: sfm_mesh: the run through the graphs differs from "
+             "the eager run")
+    emit("compiled", what="sfm_mesh", frames=len(seq_feats), shards=SFM_MESH,
+         first_pass_each=True, bit_equal_to_eager=True, turns=turns,
+         ate_limit=2 * JAX_SFM_ATE, nvidia_smi=smi_line)
+    held = {k: len(c) for k, c in caches.items()}
+    for clear in clears:
+        clear()
+    emit("compiled", what="mesh caches", graphs_held_before_clear=held,
+         nvidia_smi=smi_line)
     return launches_by_path
 
 
@@ -1436,6 +1775,9 @@ def compiled_phase(dev, smi_line, same, frames, ba_np, seq):
     # ---- the boundaries past the pipeline and the LM step -------------------
     boundary_launches = compiled_boundaries(dev, smi_line, same, frames, seq,
                                             eager, sync, in_turns)
+    # ---- the mesh boundaries on in-process meshes ----------------------------
+    boundary_launches.update(compiled_mesh(dev, smi_line, same, frames, ba_np,
+                                           seq, eager, sync, in_turns))
 
     # ---- sfm: the sequence with every graph, and with the base ones alone ---
     from hessgpu_tpu_torch import describe as tdesc

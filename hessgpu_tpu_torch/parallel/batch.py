@@ -5,11 +5,14 @@ One device: the whole batch rides the kernels' batch dimension, through
 _batched_pipeline (on the card one captured CUDA graph per plan,
 configuration and batch size, pyramid.run_pipeline_jit). A mesh
 (parallel/distributed.py) splits the batch into contiguous blocks, one per
-shard, each run through the same pipeline (one graph for B / n) - the
-counterpart of the JAX package's shard_map over a device mesh, and of the
-reference's one process per GPU. The all_gather of the shards' tables stays
-outside the graphs. Shapes are bucketed: images of one (H, W) bucket batch
-together.
+shard, each run through the same pipeline - the counterpart of the JAX
+package's shard_map over a device mesh, and of the reference's one process
+per GPU. On the card an in-process mesh's batch is one captured CUDA graph
+per plan, configuration, mesh size and batch shape (_sharded_batch_program,
+the counterpart of the JAX package's _build_sharded_batch_fn): every
+shard's pipeline and the all_gather of their tables. A process group's
+shard replays the one-device graph of B / n, with the all_gather outside
+it. Shapes are bucketed: images of one (H, W) bucket batch together.
 """
 
 from __future__ import annotations
@@ -21,10 +24,18 @@ import torch
 
 from ..config import SiftConfig
 from ..features import FeatureTable
-from ..pyramid import (PipelinePlan, make_plan, resolve_device,
-                       run_pipeline_batched, run_pipeline_jit)
+from ..pyramid import (PipelinePlan, _CfgKey, _plan_constants, make_plan,
+                       resolve_device, run_pipeline_batched, run_pipeline_jit)
+from ..utils.graphs import GraphCache, on_graph_route
 from .distributed import (DeviceMesh, all_gather, device_mesh, local_mesh,
                           mesh_shards)
+
+# The bytes the captured mesh batches may reserve, the least recently used
+# dropped first: a graph's pool holds every shard's buffers of one call, as
+# the one-device graph of the whole batch does (pyramid.PIPELINE_GRAPH_BYTES;
+# PERF.md gives the pools, chip_smoke.py's compiled phase).
+MESH_BATCH_GRAPH_BYTES = 4 << 30
+_MESH_BATCH_GRAPHS = GraphCache(MESH_BATCH_GRAPH_BYTES)
 
 
 def _batched_pipeline(imgs: torch.Tensor, plan: PipelinePlan,
@@ -33,6 +44,41 @@ def _batched_pipeline(imgs: torch.Tensor, plan: PipelinePlan,
     run_pipeline_jit, the counterpart of the JAX package's jitted
     _batched_pipeline."""
     return run_pipeline_jit(imgs, plan, cfg)[0]
+
+
+def _sharded_batch_program(imgs: torch.Tensor, plan: PipelinePlan,
+                           cfg: SiftConfig, mesh: DeviceMesh) -> FeatureTable:
+    """The batch (B, H, W) over the mesh's shards, B divisible by its size:
+    the counterpart of the JAX package's _build_sharded_batch_fn program.
+    On an in-process mesh with a card's tensor one graph of _sharded_batch
+    per (plan, cfg, mesh size) and batch shape, its shards through the eager
+    pipeline (a graph holds no other graph); elsewhere, and inside
+    disable_graphs(), _sharded_batch with each shard through
+    _batched_pipeline. _sharded_batch_program.clear_cache() frees the
+    graphs."""
+    run = lambda x: _batched_pipeline(x, plan, cfg)      # noqa: E731
+    if not on_graph_route(_MESH_BATCH_GRAPHS, imgs, mesh):
+        return _sharded_batch(imgs, mesh, run)
+    # made outside the capture, kept by the graph's function
+    consts = _plan_constants(plan, cfg, imgs.device)
+    eager = lambda x: run_pipeline_batched(x, plan, cfg)[0]  # noqa: E731
+    return _MESH_BATCH_GRAPHS(
+        (plan, _CfgKey(cfg), mesh.size),
+        lambda x, _consts=consts: _sharded_batch(x, mesh, eager), imgs)
+
+
+_sharded_batch_program.clear_cache = _MESH_BATCH_GRAPHS.clear
+
+
+def _sharded_batch(imgs: torch.Tensor, mesh: DeviceMesh,
+                   run) -> FeatureTable:
+    """This process's shards' blocks of the batch, each through run, and
+    every shard's table gathered in batch order."""
+    bl = imgs.shape[0] // mesh.size
+    parts = [run(imgs[s * bl:(s + 1) * bl]) for s in mesh_shards(mesh)]
+    return FeatureTable(*(
+        all_gather(torch.stack(leaves), mesh).flatten(0, 1)
+        for leaves in zip(*parts)))
 
 
 def detect_batch(images, cfg: Optional[SiftConfig] = None,
@@ -49,7 +95,9 @@ def detect_batch(images, cfg: Optional[SiftConfig] = None,
     (s + 1) * B / n) through the pipeline (B must be divisible by the mesh
     size; every rank of a group passes the whole batch), and every rank gets
     the full batched table back in batch order (all_gather). mesh=None runs
-    the whole batch as one.
+    the whole batch as one. On the card an in-process mesh replays one graph
+    of every shard (_sharded_batch_program); a process group's mesh replays
+    the one-device graph of its shard and gathers eagerly.
     device="cuda" without a card raises.
     plain=True runs the kernels' plain PyTorch versions instead, eagerly (a
     check, not a fallback).
@@ -76,11 +124,9 @@ def detect_batch(images, cfg: Optional[SiftConfig] = None,
     if b % mesh.size:
         raise ValueError(f"detect_batch: batch {b} is not divisible by the "
                          f"mesh's {mesh.size} shards")
-    bl = b // mesh.size
-    parts = [run(arr[s * bl:(s + 1) * bl]) for s in mesh_shards(mesh)]
-    return FeatureTable(*(
-        all_gather(torch.stack(leaves), mesh).flatten(0, 1)
-        for leaves in zip(*parts)))
+    if plain:
+        return _sharded_batch(arr, mesh, run)
+    return _sharded_batch_program(arr, plan, cfg, mesh)
 
 
 def data_parallel_mesh(n_devices: Optional[int] = None) -> DeviceMesh:

@@ -27,7 +27,13 @@ Besides:
   * match_sharded(): the all-pairs descriptor matcher with image 1's rows
     split over the mesh's shards, walked in (row tile, column tile) blocks,
     so that the (N1, N2) dot matrix never exists whole. mesh=None runs it
-    on one device.
+    on one device. On the card, on an in-process mesh or none, the whole
+    walk is one captured CUDA graph (utils/graphs.py) per (mesh size,
+    mode, tiles) and (N1, N2): the counterpart of the JAX package's jitted
+    shard_map program. (N1, N2) follow the data and are not padded: a pad
+    would add work to a call bound by the device (up to 4x the dots), and a
+    map-scale table is often matched once, so a key is captured at its
+    second call (GraphCache capture_at=2) and its first runs eagerly.
 """
 
 from __future__ import annotations
@@ -39,8 +45,17 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..matcher import _accept, _best_two, _guided_gate_eager, descriptor_dots
+from ..matcher import (_accept, _best_two, _guided_gate_eager, _scalar,
+                       descriptor_dots)
 from ..pyramid import resolve_device
+from ..utils.graphs import GraphCache, on_graph_route
+
+# The bytes the captured matching walks may reserve, the least recently
+# used dropped first (the newest kept whatever its size). A graph's pool is
+# its call's peak, up to a quarter of the card's memory (_row_tile): PERF.md
+# gives the pools at 16384^2 and 65536^2 (chip_smoke.py's compiled phase).
+MATCH_SHARDED_GRAPH_BYTES = 8 << 30
+_MATCH_SHARDED_GRAPHS = GraphCache(MATCH_SHARDED_GRAPH_BYTES, capture_at=2)
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -181,13 +196,21 @@ def _row_tile(rows: int, n2_tile: int, guided: bool,
               device: torch.device) -> int:
     """Rows per block. A block's float32 dots and, in guided mode, the
     gate's temporaries (about 10 floats per pair) take at most a quarter of
-    the card's free memory, or 256 MB on the CPU."""
+    the card's free memory (cudaMemGetInfo's, and the caching allocator's
+    unused blocks), or 256 MB on the CPU. A power of two below `rows`, so
+    that the tile (a key of the captured walk) holds while free memory
+    moves a little."""
     if device.type == "cuda":
-        budget = torch.cuda.mem_get_info(device)[0] // 4
+        idle = torch.cuda.memory_reserved(device) \
+            - torch.cuda.memory_allocated(device)
+        budget = (torch.cuda.mem_get_info(device)[0] + idle) // 4
     else:
         budget = 256 << 20
     per_pair = 40 if guided else 8
-    return max(1, min(rows, budget // (per_pair * n2_tile)))
+    tile = budget // (per_pair * n2_tile)
+    if tile >= rows:
+        return max(1, rows)
+    return 1 << max(0, tile.bit_length() - 1)
 
 
 def _merge_top2(v1, i1, v2, bv, bi, nv) -> None:
@@ -238,6 +261,11 @@ def match_sharded(d1, d2, mesh: Optional[DeviceMesh] = None,
     result does not depend on the tiles. A short last block stands in for
     the JAX package's padding.
     device="cuda" without a card raises.
+
+    On the card, with an in-process mesh or none, a key's second call
+    captures the walk and later calls replay it (the module's docstring);
+    a process group's mesh, the CPU and disable_graphs() run it eagerly.
+    match_sharded.clear_cache() frees the graphs.
     """
     dev = resolve_device(device)
 
@@ -267,6 +295,38 @@ def match_sharded(d1, d2, mesh: Optional[DeviceMesh] = None,
     if n2_tile is None and nloc * n2 * 4 > 256 * 1024 * 1024:
         n2_tile = 16384
     n2_tile = min(n2_tile or n2, n2)
+    # decided on the host, outside any capture: the row tile reads the
+    # device's free memory
+    n1_tile = _row_tile(nloc, n2_tile, guided, dev)
+    args = (d1, d2, _scalar(distmax, d1), _scalar(ratiomax, d1))
+    if guided:
+        args += (loc1, loc2, H, _scalar(hdistmax, d1), F,
+                 _scalar(fdistmax, d1))
+
+    def walk(*a):
+        return _match_walk(*a, mesh=mesh, mutual_best=mutual_best,
+                           n1_tile=n1_tile, n2_tile=n2_tile)
+
+    if on_graph_route(_MATCH_SHARDED_GRAPHS, d1, mesh):
+        return _MATCH_SHARDED_GRAPHS(
+            (size, bool(mutual_best), guided, n1_tile, n2_tile), walk, *args)
+    return walk(*args)
+
+
+match_sharded.clear_cache = _MATCH_SHARDED_GRAPHS.clear
+
+
+def _match_walk(d1, d2, distmax, ratiomax, loc1=None, loc2=None, H=None,
+                hdistmax=None, F=None, fdistmax=None, *, mesh, mutual_best,
+                n1_tile, n2_tile):
+    """match_sharded's program on tensors: the thresholds 0-d float32, H
+    and F (3, 3), loc1 / loc2 given in guided mode; the tiles decided by
+    the caller. Every rank returns the full (N1,) result."""
+    dev = d1.device
+    guided = loc1 is not None
+    size = 1 if mesh is None else mesh.size
+    n1, n2 = d1.shape[0], d2.shape[0]
+    nloc = -(-n1 // size)
     f32 = dict(dtype=torch.float32, device=dev)
 
     def shard_top2(rank):
@@ -274,7 +334,6 @@ def match_sharded(d1, d2, mesh: Optional[DeviceMesh] = None,
         columns' running (best, index, second)."""
         r0, r1 = min(n1, rank * nloc), min(n1, (rank + 1) * nloc)
         m = r1 - r0
-        n1_tile = _row_tile(m, n2_tile, guided, dev)
         rv = torch.full((m,), -np.inf, **f32)
         rn = torch.full((m,), -np.inf, **f32)
         ri = torch.zeros(m, dtype=torch.int64, device=dev)
@@ -303,7 +362,6 @@ def match_sharded(d1, d2, mesh: Optional[DeviceMesh] = None,
         return r0, r1, rv, ri, rn, cv, ci, cn
 
     parts = [shard_top2(rank) for rank in mesh_shards(mesh)]
-    none = torch.tensor(-1, dtype=torch.int64, device=dev)
     if mutual_best:
         cv, ci, cn = (torch.stack([p[k] for p in parts]) for k in (5, 6, 7))
         # the best over the shards is the first of equal maxima (the lowest
@@ -317,15 +375,14 @@ def match_sharded(d1, d2, mesh: Optional[DeviceMesh] = None,
         cn = torch.where(own, all_gather(cn, mesh), all_cv).amax(0)
         cv = all_cv.gather(0, best)[0]
         col_match = torch.where(_accept(cv, cn, distmax, ratiomax) & (cv > 0),
-                                ci, none)
+                                ci, -1)
     out = torch.full((len(parts), nloc), -1, dtype=torch.int64, device=dev)
     for k, (r0, r1, rv, ri, rn, *_) in enumerate(parts):
         row_match = torch.where(
-            _accept(rv, rn, distmax, ratiomax) & (rv > 0), ri, none)
+            _accept(rv, rn, distmax, ratiomax) & (rv > 0), ri, -1)
         if mutual_best:
             rows = torch.arange(r0, r1, device=dev)
             mutual = col_match[row_match.clamp(0, n2 - 1)] == rows
-            row_match = torch.where((row_match >= 0) & mutual, row_match,
-                                    none)
+            row_match = torch.where((row_match >= 0) & mutual, row_match, -1)
         out[k, :r1 - r0] = row_match
     return all_gather(out, mesh).reshape(-1)[:n1]

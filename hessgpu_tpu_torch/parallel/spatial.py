@@ -34,10 +34,23 @@ overflows.
 
 Every octave's shape is the plan's (floor-halved, as on one device; the JAX
 package's spatial path keeps ceil-halved odd widths).
+
+On the card an in-process mesh's detect + describe is one captured CUDA
+graph (utils/graphs.py) per (H, W, configuration, mesh size, describe):
+the sharded pipeline, the level-major gather and the table's assembly -
+the counterparts of the JAX package's _build_sharded_fn program and its
+jitted _assemble_feature_table. Its host values (the geometry, the
+per-shard cap, G) are plain ints that go in the key, and its two
+constants (the key levels' sigmas, each level's octave scale) are device
+tensors made before the capture (_spatial_constants). A process group's
+mesh runs eagerly, and so does every call on the CPU and inside
+utils.graphs.disable_graphs(). _sharded_program.clear_cache() frees the
+graphs and the constants.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, NamedTuple, Optional, Sequence
 
@@ -56,13 +69,22 @@ from ..ops.hessian import hessian_response_and_gradient
 from ..ops.keypoint import TYPE_NONE
 from ..params import (gaussian_taps, max_features_per_level, octave_shapes,
                       required_octaves)
-from ..pyramid import (_detect_octave, describe_table, orient_table,
-                       resolve_device, window_sizes)
+from ..pyramid import (_CfgKey, _detect_octave, describe_table,
+                       orient_table, resolve_device, window_sizes)
+from ..utils.graphs import GraphCache, on_graph_route
 from .distributed import (DeviceMesh, all_gather, exchange_halo,
                           mesh_shards)
 
 TWO_PI = 2.0 * math.pi
 MIN_SHARD_ROWS = 32   # the widest blur (33 taps) reaches 16 rows
+
+# The bytes the captured sharded programs may reserve, the least recently
+# used dropped first. A graph's pool holds its call's buffers, about the
+# eager call's peak: a 4032x6048 frame's is 5.0-5.1 GB over 1, 2 or 4
+# bands (PERF.md, chip_smoke.py's compiled phase), and its three graphs fit
+# together.
+SPATIAL_GRAPH_BYTES = 16 << 30
+_SPATIAL_GRAPHS = GraphCache(SPATIAL_GRAPH_BYTES)
 
 
 def _image(img, device) -> torch.Tensor:
@@ -259,24 +281,39 @@ class _Table(NamedTuple):
     level_id: torch.Tensor
 
 
-def _sharded_impl(img, cfg: SiftConfig, mesh: DeviceMesh, describe: bool,
-                  device, plain: bool):
-    """The sharded pipeline. Returns (res, G_out, aux): res a dict of (k,
-    L, S) leaves for this process's shards (S = cap * MO slots per shard and
-    level; desc (k, L, S, D) when describing), aux the per-shard level
-    counts (n, L) before the global cap and the per-shard cap."""
-    if cfg.first_octave != 0:
-        raise ValueError("the row-sharded path takes octave 0 at the "
-                         "image's own size: first_octave must be 0")
-    img = _image(img, device)
-    H, W = img.shape
-    n = mesh.size
-    if H % n:
-        raise ValueError(f"image height {H} is not divisible by the mesh's "
-                         f"{n} shards")
+class _SpatialConstants(NamedTuple):
+    """Device constants of one (octave count, configuration, device)."""
+    key_sigmas: torch.Tensor   # f32 (NK,): the key levels' sigmas
+    level_scale: torch.Tensor  # f32 (1, L, 1): 2^octave of each level
+
+
+@functools.lru_cache(maxsize=64)
+def _spatial_constants(noct: int, key: _CfgKey,
+                       device: torch.device) -> _SpatialConstants:
+    """Made at a key's first call and reused after (never inside a graph's
+    capture, where a copy from host memory raises); a graph's function
+    keeps its own alive."""
+    p = key.cfg.scale_params()
+    nk = len(p.key_levels)
+    return _SpatialConstants(
+        key_sigmas=torch.tensor([p.key_level_sigma(kl) for kl in
+                                 p.key_levels], dtype=torch.float32,
+                                device=device),
+        level_scale=torch.tensor(
+            [float(1 << (li // nk)) for li in range(noct * nk)],
+            device=device)[None, :, None])
+
+
+def _sharded_impl(img: torch.Tensor, cfg: SiftConfig, mesh: DeviceMesh,
+                  geo: _Geometry, consts: _SpatialConstants, describe: bool,
+                  plain: bool):
+    """The sharded pipeline on an (H, W) image on its device, H divisible
+    by the mesh size. Returns (res, counts): res a dict of (k, L, S) leaves
+    for this process's shards (S = cap * MO slots per shard and level; desc
+    (k, L, S, D) when describing), counts the per-shard keypoints per level
+    (n, L) before the global cap."""
     own = mesh_shards(mesh)
     k, first = len(own), own.start == 0
-    geo = _geometry(H, W, cfg, n, describe)
     p = cfg.scale_params()
     nk = len(p.key_levels)
     lds = p.level_ds - p.level_min
@@ -287,8 +324,7 @@ def _sharded_impl(img, cfg: SiftConfig, mesh: DeviceMesh, describe: bool,
                               p.filter_width_factor) \
         if p.octave_restart_sigma() > 0 else ()
     taps_inc = gaussian.chain_taps(p)
-    sigmas = torch.tensor([p.key_level_sigma(kl) for kl in p.key_levels],
-                          dtype=torch.float32, device=img.device)
+    sigmas = consts.key_sigmas
 
     lists: List[FeatureList] = []
     grads, rots, row0s, steps, heights = [], [], [], [], []
@@ -355,19 +391,16 @@ def _sharded_impl(img, cfg: SiftConfig, mesh: DeviceMesh, describe: bool,
     valid = cat("valid")                                   # (k, L, cap)
     L, cap = valid.shape[1], geo.cap
     counts = all_gather(valid.sum(-1, dtype=torch.int32), mesh)
-    oss = torch.tensor([float(1 << (li // nk)) for li in range(L)],
-                       device=img.device)[None, :, None]
+    oss = consts.level_scale
     offset = 0.0 if cfg.lowe_origin else 0.5
     x, y, sig, resp, ft = (cat(f) for f in ("x", "y", "sigma", "response",
                                             "ftype"))
-    aux = {"shard_level_counts": counts, "level_cap": cap,
-           "full_level_caps": geo.full_caps, "sharded_octaves": geo.sharded}
     if not describe:
         res = dict(x=torch.where(valid, oss * (x - 0.5) + offset, 0.0),
                    y=torch.where(valid, oss * (y - 0.5) + offset, 0.0),
                    sigma=oss * sig, response=resp,
                    ftype=torch.where(valid, ft, TYPE_NONE), valid=valid)
-        return res, None, aux
+        return res, counts
 
     valid = valid & _global_keep(valid, resp.abs(), cfg, mesh, geo.G)
     lid = torch.arange(L, dtype=torch.int32, device=img.device) \
@@ -407,9 +440,7 @@ def _sharded_impl(img, cfg: SiftConfig, mesh: DeviceMesh, describe: bool,
         valid=vslot, desc=desc)
     res = {key: v.reshape((k, L, cap * MO) + tuple(v.shape[2:]))
            for key, v in res.items()}
-    G_out = geo.G if geo.single else \
-        int(geo.G * cfg.expansion_factor + 7) // 8 * 8
-    return res, G_out, aux
+    return res, counts
 
 
 def _level_major(a: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
@@ -417,6 +448,52 @@ def _level_major(a: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
     shard-major."""
     full = all_gather(a.contiguous(), mesh)
     return full.transpose(0, 1).flatten(1, 2)
+
+
+def _sharded_program(img, cfg: SiftConfig, mesh: DeviceMesh,
+                     describe: bool, device, plain: bool):
+    """The sharded pipeline with its level-major gather and, describing,
+    the table's assembly: (out, aux), out the FeatureTable or the
+    keypoints' level-major dict. On an in-process mesh with the card's
+    image (and plain False) one graph per (H, W, cfg, mesh size, describe);
+    elsewhere, and inside disable_graphs(), its eager body."""
+    if cfg.first_octave != 0:
+        raise ValueError("the row-sharded path takes octave 0 at the "
+                         "image's own size: first_octave must be 0")
+    img = _image(img, device)
+    H, W = img.shape
+    n = mesh.size
+    if H % n:
+        raise ValueError(f"image height {H} is not divisible by the mesh's "
+                         f"{n} shards")
+    geo = _geometry(H, W, cfg, n, describe)
+    key = _CfgKey(cfg)
+    consts = _spatial_constants(len(geo.shapes), key, img.device)
+    G_out = geo.G if geo.single else \
+        int(geo.G * cfg.expansion_factor + 7) // 8 * 8
+
+    def body(x, consts=consts):
+        res, counts = _sharded_impl(x, cfg, mesh, geo, consts, describe,
+                                    plain)
+        res = {name: _level_major(v, mesh) for name, v in res.items()}
+        return (_assemble_feature_table(res, G_out) if describe else res,
+                counts)
+
+    if not plain and on_graph_route(_SPATIAL_GRAPHS, img, mesh):
+        out, counts = _SPATIAL_GRAPHS((H, W, key, n, describe), body, img)
+    else:
+        out, counts = body(img)
+    aux = {"shard_level_counts": counts, "level_cap": geo.cap,
+           "full_level_caps": geo.full_caps, "sharded_octaves": geo.sharded}
+    return out, aux
+
+
+def _clear_spatial_cache() -> None:
+    _SPATIAL_GRAPHS.clear()
+    _spatial_constants.cache_clear()
+
+
+_sharded_program.clear_cache = _clear_spatial_cache
 
 
 def sharded_detect_keypoints(img, cfg: SiftConfig, mesh: DeviceMesh,
@@ -427,9 +504,9 @@ def sharded_detect_keypoints(img, cfg: SiftConfig, mesh: DeviceMesh,
     Returns a dict of (L, n * cap) tensors - x, y, sigma (image frame),
     response, ftype, valid - level-major as on one device, shard-major
     within a level (replicated octaves report on shard 0), the same on
-    every rank."""
-    res, _, _ = _sharded_impl(img, cfg, mesh, False, device, plain)
-    return {key: _level_major(v, mesh) for key, v in res.items()}
+    every rank. On the card an in-process mesh replays one graph of the
+    whole call (the module's docstring); a process group's runs eagerly."""
+    return _sharded_program(img, cfg, mesh, False, device, plain)[0]
 
 
 def sharded_detect_and_describe(img, cfg: SiftConfig, mesh: DeviceMesh,
@@ -447,10 +524,11 @@ def sharded_detect_and_describe(img, cfg: SiftConfig, mesh: DeviceMesh,
     the per-shard level cap, the one-device level caps per octave and
     which octaves were sharded.
     device="cuda" without a card raises; plain=True runs the kernels'
-    plain PyTorch versions (a check, not a fallback)."""
-    res, G, aux = _sharded_impl(img, cfg, mesh, True, device, plain)
-    table = _assemble_feature_table(
-        {key: _level_major(v, mesh) for key, v in res.items()}, G)
+    plain PyTorch versions (a check, not a fallback). On the card an
+    in-process mesh replays one graph of the whole call, the table's
+    assembly included (the module's docstring); a process group's mesh
+    runs eagerly."""
+    table, aux = _sharded_program(img, cfg, mesh, True, device, plain)
     return (table, aux) if with_aux else table
 
 

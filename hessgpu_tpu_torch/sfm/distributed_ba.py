@@ -17,6 +17,15 @@ repeats itself bit for bit on one device.
 
 The observation list is padded to a multiple of the mesh size with
 zero-weight entries, so sharding is exact.
+
+On the card an in-process mesh's step replays one captured CUDA graph
+(utils/graphs.py) of the whole step - every shard's segment sums, the
+psums in shard order, PCG and the accept rule - per (mesh size, cg_iters,
+fix_first_cam) and the padded problem's shapes: the counterpart of the JAX
+package's jit(shard_map(step)). A process group's step runs eagerly (its
+psums are collective calls), and so does every step on the CPU and inside
+utils.graphs.disable_graphs(). make_sharded_lm_step.clear_cache() frees
+the graphs.
 """
 
 from __future__ import annotations
@@ -27,8 +36,15 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.distributed import DeviceMesh, mesh_shards, psum
+from ..utils.graphs import GraphCache, on_graph_route
 from ..utils.precision import full_f32_matmul
-from .ba import BAProblem, BAState, _lm_step, segment_sum
+from .ba import LM_GRAPH_BYTES, BAProblem, BAState, _lm_step, segment_sum
+
+# The bytes the captured sharded LM steps may reserve, the least recently
+# used dropped first: a reconstruction meets a new problem shape at every
+# BA, as lm_step's graphs do (sfm/ba.py LM_GRAPH_BYTES).
+SHARDED_LM_GRAPH_BYTES = LM_GRAPH_BYTES
+_SHARDED_LM_GRAPHS = GraphCache(SHARDED_LM_GRAPH_BYTES)
 
 
 def pad_problem(prob: BAProblem, multiple: int) -> BAProblem:
@@ -51,7 +67,12 @@ def make_sharded_lm_step(mesh: DeviceMesh, cg_iters: int = 30,
     """An LM step with the observations sharded over the mesh:
     step(state, lam, prob) -> (new_state, new_lam, cost0, cost1), the last
     three 0-d tensors. prob: the whole padded problem (its length a
-    multiple of mesh.size); each process takes its shards' blocks."""
+    multiple of mesh.size); each process takes its shards' blocks. lam: a
+    0-d tensor on the state's device.
+
+    On an in-process mesh with the card's tensors the step replays its
+    graph (the module's docstring); on a process group's mesh, on the CPU
+    and inside disable_graphs() it runs eagerly."""
     own = mesh_shards(mesh)
     k = len(own)
 
@@ -60,7 +81,13 @@ def make_sharded_lm_step(mesh: DeviceMesh, cg_iters: int = 30,
         if n_obs % mesh.size:
             raise ValueError(f"{n_obs} observations do not split over "
                              f"{mesh.size} shards: pad_problem first")
-        per = n_obs // mesh.size
+        if on_graph_route(_SHARDED_LM_GRAPHS, state.R, mesh):
+            return _SHARDED_LM_GRAPHS((mesh.size, cg_iters, fix_first_cam),
+                                      body, state, lam, prob)
+        return body(state, lam, prob)
+
+    def body(state: BAState, lam: torch.Tensor, prob: BAProblem):
+        per = prob.cam_idx.shape[0] // mesh.size
         local = BAProblem(*(a[own.start * per:own.stop * per] for a in prob))
         shard_of = torch.arange(k, device=prob.cam_idx.device) \
             .repeat_interleave(per)
@@ -78,6 +105,9 @@ def make_sharded_lm_step(mesh: DeviceMesh, cg_iters: int = 30,
         return new_state, new_lam, cost0, cost1
 
     return step
+
+
+make_sharded_lm_step.clear_cache = _SHARDED_LM_GRAPHS.clear
 
 
 def bundle_adjust_sharded(state: BAState, prob: BAProblem, mesh: DeviceMesh,

@@ -3,7 +3,10 @@ JAX package's jax.jit caches (hessgpu_tpu/pyramid.py run_pipeline_jit,
 parallel/batch.py _batched_pipeline, sfm/ba.py lm_step, describe.py
 _pyramid_gradients / _orient_and_describe_level / _describe_all_pallas,
 matcher.py _match_core / _guided_gate, sfm/twoview.py ransac_fundamental /
-ransac_pnp, sfm/posegraph.py's step).
+ransac_pnp, sfm/posegraph.py's step) and of its jitted shard_map programs
+over a mesh (parallel/batch.py _build_sharded_batch_fn, parallel/spatial.py
+_build_sharded_fn and _assemble_feature_table, sfm/distributed_ba.py's
+sharded LM step, parallel/distributed.py match_sharded's program).
 
 A jitted JAX function compiles one program per static argument and input
 shape and reuses it; a GraphCache captures one CUDA graph per key and input
@@ -50,6 +53,14 @@ thread's call of the same graph waits for, on the host and on the card;
 and one capture runs at a time in the process, in CUDA's thread-local
 capture mode, so that other threads' work goes on meanwhile.
 
+A mesh's program is one graph only on an in-process mesh (or none), where
+every collective is a torch operation on the one device: a process group's
+collectives are host calls (gloo) or NCCL calls, which this layer does not
+capture, so its entry points run eagerly there (on_graph_route). A graph's
+function calls the eager bodies of the boundaries it holds, never their
+GraphCaches: JAX inlines a nested jit, and a GraphCache called inside
+another's capture raises.
+
 disable_graphs() is the counterpart of jax.disable_jit(): inside it the
 entry points that replay graphs run their eager bodies instead;
 disable_graphs(caches=[...]) does so for those caches' entry points only.
@@ -78,6 +89,8 @@ SEEN_KEYS = 4096
 
 # One capture at a time in the process, and no cache emptied during one.
 _capture_lock = threading.Lock()
+# whether this thread is making a graph (its warm-up call and its capture)
+_making = threading.local()
 
 
 @contextlib.contextmanager
@@ -102,6 +115,21 @@ def disable_graphs(disable: bool = True, caches=None):
 def graphs_enabled(cache: "GraphCache" = None) -> bool:
     """Whether the entry points replay graphs (those of `cache`, if given)."""
     return not _disabled and cache not in _disabled_caches
+
+
+# the device types whose work replays captured graphs
+GRAPH_DEVICE_TYPES = frozenset({"cuda"})
+
+
+def on_graph_route(cache: "GraphCache", tensor: torch.Tensor,
+                   mesh=None) -> bool:
+    """Whether an entry point replays `cache`'s graph for work on `tensor`'s
+    device over `mesh`: a card's tensor, the cache enabled, and no mesh or
+    an in-process one (mesh.in_process). A process group's mesh runs
+    eagerly: its collectives are calls no capture here holds."""
+    return (tensor.device.type in GRAPH_DEVICE_TYPES
+            and graphs_enabled(cache)
+            and (mesh is None or mesh.in_process))
 
 
 class Eager(NamedTuple):
@@ -307,6 +335,10 @@ class GraphCache:
         dev = leaves[0].device
         if any(t.device != dev for t in leaves):
             raise ValueError("GraphCache: arguments on more than one device")
+        if getattr(_making, "graph", False):
+            raise RuntimeError(
+                "GraphCache called inside another graph's capture: the "
+                "outer function must call the eager body")
         full = (key, tuple((tuple(t.shape), t.dtype) for t in leaves),
                 dev.index)
         with torch.cuda.device(dev):
@@ -333,7 +365,11 @@ class GraphCache:
             else:
                 self._seen.pop(key, None)
                 with _capture_lock:
-                    g = self._add(key, make())
+                    _making.graph = True
+                    try:
+                        g = self._add(key, make())
+                    finally:
+                        _making.graph = False
             if g is not None:
                 self.replays += 1
             return g

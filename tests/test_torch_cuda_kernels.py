@@ -607,15 +607,19 @@ def test_spatial_path_goes_through_the_kernels(card, n):
     from hessgpu_tpu_torch.parallel.spatial import sharded_detect_and_describe
     img = texture_frame(7, 512, 256)
     cfg = SiftConfig()
-    reset_launch_counts()
-    got, aux = sharded_detect_and_describe(img, cfg, local_mesh(n),
-                                           with_aux=True)
-    counts = launch_counts()
+    with disable_graphs():      # the eager route: its wrappers count launches
+        reset_launch_counts()
+        eager, aux = sharded_detect_and_describe(img, cfg, local_mesh(n),
+                                                 with_aux=True)
+        counts = launch_counts()
     assert counts["octave_chain"] == 0 and counts["orientation"] == 1 \
         and counts["descriptor"] == 1
     assert min(counts["blur"], counts["downsample2"],
                counts["detect_octave"]) > 0
     assert not bool((aux["shard_level_counts"] >= aux["level_cap"]).any())
+    got = sharded_detect_and_describe(img, cfg, local_mesh(n))   # the graph
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(eager, f)), f
     want = sharded_detect_and_describe(img, cfg, local_mesh(n), plain=True)
     one, _ = detect_and_describe(img, cfg)
     assert int(got.valid.sum()) > 50

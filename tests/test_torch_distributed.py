@@ -8,6 +8,8 @@ multiples of the tiles, tiny row and column tiles, tied maxima, and two
 gloo ranks against one device.
 """
 
+import functools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -19,6 +21,7 @@ from hessgpu_tpu.parallel.distributed import (device_mesh as jax_mesh,
                                               match_sharded as jax_sharded)
 from hessgpu_tpu_torch.parallel import distributed as td
 from _torch_dist_worker import rank_main
+from _torch_graph_route import graph_route  # noqa: F401
 from _torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -69,6 +72,27 @@ def _core(d1, d2, mutual_best=True):
                                mutual_best=mutual_best))
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_plain(mesh_size, mutual, n1, n2, n2_tile):
+    """The JAX package's result on a plain case, run once per process."""
+    d1, d2, _ = _problem(n1 + n2, n1, n2)
+    return _jax(d1, d2, mesh_size, mutual_best=mutual, n2_tile=n2_tile)
+
+
+def _guided_kw(n2_tile, use_h, use_f):
+    d1, d2, g = _problem(7, 61, 90, guided=True)
+    return d1, d2, dict(loc1=g["loc1"], loc2=g["loc2"], n2_tile=n2_tile,
+                        H=g["H"] if use_h else None,
+                        F=g["F"] if use_f else None)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_guided(mesh_size, n2_tile, use_h, use_f):
+    """The JAX package's result on a guided case, run once per process."""
+    d1, d2, kw = _guided_kw(n2_tile, use_h, use_f)
+    return _jax(d1, d2, mesh_size, **kw)
+
+
 @pytest.mark.parametrize("mesh_size", [1, 8])
 @pytest.mark.parametrize("mutual", [True, False])
 @pytest.mark.parametrize("n1, n2, n2_tile", [
@@ -78,7 +102,7 @@ def _core(d1, d2, mutual_best=True):
 ])
 def test_plain_matches_jax(mesh_size, mutual, n1, n2, n2_tile):
     d1, d2, _ = _problem(n1 + n2, n1, n2)
-    want = _jax(d1, d2, mesh_size, mutual_best=mutual, n2_tile=n2_tile)
+    want = _jax_plain(mesh_size, mutual, n1, n2, n2_tile)
     got = _port(d1, d2, mutual_best=mutual, n2_tile=n2_tile)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, _core(d1, d2, mutual))
@@ -92,13 +116,34 @@ def test_plain_matches_jax(mesh_size, mutual, n1, n2, n2_tile):
                                           (True, True)],
                          ids=["H", "F", "H+F"])
 def test_guided_matches_jax(mesh_size, n2_tile, use_h, use_f):
-    d1, d2, g = _problem(7, 61, 90, guided=True)
-    kw = dict(loc1=g["loc1"], loc2=g["loc2"], n2_tile=n2_tile,
-              H=g["H"] if use_h else None, F=g["F"] if use_f else None)
-    want = _jax(d1, d2, mesh_size, **kw)
+    d1, d2, kw = _guided_kw(n2_tile, use_h, use_f)
+    want = _jax_guided(mesh_size, n2_tile, use_h, use_f)
     got = _port(d1, d2, **kw)
     np.testing.assert_array_equal(got, want)
     assert (got >= 0).sum() >= 5
+
+
+@pytest.mark.parametrize("mesh_size", [1, 8])
+@pytest.mark.parametrize("case", ["plain", "rows", "guided"])
+def test_the_captured_walk_matches_jax(mesh_size, case, graph_route):
+    """The function a card captures on an in-process mesh of mesh_size
+    shards (the whole tiled walk, its merges, the column gather and the
+    mutual check; the tiles in its key), run here by the graph_route
+    fixture, against the JAX package's program on as many devices."""
+    if case == "guided":
+        d1, d2, kw = _guided_kw(32, True, True)
+        want = _jax_guided(mesh_size, 32, True, True)
+    else:
+        mutual = case == "plain"
+        d1, d2, _ = _problem(632 + 100, 632, 100)
+        kw = dict(mutual_best=mutual, n2_tile=16)
+        want = _jax_plain(mesh_size, mutual, 632, 100, 16)
+    got = td.match_sharded(d1, d2, td.local_mesh(mesh_size), device="cpu",
+                           **kw).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert [c.cache for c in graph_route] == [td._MATCH_SHARDED_GRAPHS]
+    assert graph_route[0].key[:3] == (mesh_size, case != "rows",
+                                      case == "guided")
 
 
 @pytest.mark.parametrize("n1_tile", [16, 32, 64])

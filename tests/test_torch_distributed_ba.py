@@ -19,6 +19,8 @@ it. The in-process mesh repeats itself bit for bit, and a one-shard mesh is
 the one-device step bit for bit.
 """
 
+import functools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -32,6 +34,7 @@ from hessgpu_tpu_torch.sfm import ba as tba
 from hessgpu_tpu_torch.sfm import distributed_ba as tdba
 from test_ba import _make_problem
 from test_torch_sfm_ba import _problem as _noisy_problem
+from _torch_graph_route import graph_route  # noqa: F401
 from _torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -61,7 +64,10 @@ def test_pad_problem_matches_jax(n_obs, multiple):
                                       np.asarray(getattr(want, f)))
 
 
-def test_one_sharded_step_matches_jax():
+@functools.lru_cache(maxsize=None)
+def _jax_step_costs():
+    """cost0 and cost1 of the JAX package's sharded step at n = 8 on the
+    noisy problem, run once per process."""
     a = _noisy_problem()
     mesh = jax_device_mesh("obs", 8)
     jstate = jdba.BAState(R=jnp.asarray(a["R"]), t=jnp.asarray(a["t"]),
@@ -72,14 +78,31 @@ def test_one_sharded_step_matches_jax():
         uv=jnp.asarray(a["uv"]), weight=jnp.asarray(a["weight"])), 8)
     _, _, jc0, jc1 = jdba.make_sharded_lm_step(mesh)(
         jstate, jnp.asarray(1e-3), *jprob)
+    return float(jc0), float(jc1)
 
-    state, prob = _port(a)
+
+def _check_one_step():
+    jc0, jc1 = _jax_step_costs()
+    state, prob = _port(_noisy_problem())
     step = tdba.make_sharded_lm_step(local_mesh(8))
     _, lam, c0, c1 = step(state, torch.tensor(1e-3),
                           tdba.pad_problem(prob, 8))
-    np.testing.assert_allclose(float(c0), float(jc0), rtol=1e-5)
-    np.testing.assert_allclose(float(c1), float(jc1), rtol=1e-4)
+    np.testing.assert_allclose(float(c0), jc0, rtol=1e-5)
+    np.testing.assert_allclose(float(c1), jc1, rtol=1e-4)
     assert float(c1) < float(c0) and float(lam) == pytest.approx(5e-4)
+
+
+def test_one_sharded_step_matches_jax():
+    _check_one_step()
+
+
+def test_the_captured_sharded_step_matches_jax(graph_route):
+    """The function a card captures for the step on an in-process mesh
+    (the whole step, key (mesh size, cg_iters, fix_first_cam)), run here by
+    the graph_route fixture."""
+    _check_one_step()
+    assert [c.key for c in graph_route] == [(8, 30, True)]
+    assert graph_route[0].cache is tdba._SHARDED_LM_GRAPHS
 
 
 def test_twelve_iterations_converge_like_the_local_solve():

@@ -24,6 +24,8 @@ Tolerances:
     bit.
 """
 
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -43,6 +45,7 @@ from hessgpu_tpu_torch.parallel.distributed import local_mesh
 from hessgpu_tpu_torch.pyramid import key_level_gradients
 from hessgpu_tpu_torch.sfm.synthetic import texture_frame
 
+from _torch_graph_route import graph_route  # noqa: F401
 from _torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -126,18 +129,42 @@ def _assert_rows_agree(got, want, loose=1):
     np.testing.assert_array_equal(got[:, 4], want[:, 4])
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_keypoints(n, num_octaves):
+    """The JAX package's sharded detection over n virtual devices, run once
+    per process for the cases that hold the port to it."""
+    jc = JConfig(threshold=0.001)
+    jc.num_octaves = num_octaves
+    return _kp_rows(jsp.sharded_detect_keypoints(
+        jnp.asarray(_smooth_image(256, 320)), jc, _jax_mesh(n)))
+
+
+def _check_keypoints(n, num_octaves):
+    tc = SiftConfig(threshold=0.001)
+    tc.num_octaves = num_octaves
+    want = _jax_keypoints(n, num_octaves)
+    got = _kp_rows({k: v.numpy() for k, v in tsp.sharded_detect_keypoints(
+        _smooth_image(256, 320), tc, local_mesh(n), device="cpu").items()})
+    assert len(want) > 20
+    _assert_rows_agree(got, want)
+
+
 @pytest.mark.parametrize("n", [2, 8])
 @pytest.mark.parametrize("num_octaves", [1, 0], ids=["octave0", "all"])
 def test_sharded_detect_keypoints_matches_jax(n, num_octaves):
-    img = _smooth_image(256, 320)
-    jc, tc = JConfig(threshold=0.001), SiftConfig(threshold=0.001)
-    jc.num_octaves = tc.num_octaves = num_octaves
-    want = _kp_rows(jsp.sharded_detect_keypoints(jnp.asarray(img), jc,
-                                                 _jax_mesh(n)))
-    got = _kp_rows({k: v.numpy() for k, v in tsp.sharded_detect_keypoints(
-        img, tc, local_mesh(n), device="cpu").items()})
-    assert len(want) > 20
-    _assert_rows_agree(got, want)
+    _check_keypoints(n, num_octaves)
+
+
+@pytest.mark.parametrize("n", [2, 8])
+@pytest.mark.parametrize("num_octaves", [1, 0], ids=["octave0", "all"])
+def test_the_captured_keypoint_program_matches_jax(n, num_octaves,
+                                                   graph_route):
+    """The function a card captures for sharded_detect_keypoints on an
+    in-process mesh (_sharded_program without describing), run here by the
+    graph_route fixture."""
+    _check_keypoints(n, num_octaves)
+    assert [c.cache for c in graph_route] == [tsp._SPATIAL_GRAPHS]
+    assert graph_route[0].key[3:] == (n, False)
 
 
 def test_band_level_maps_read_through_their_row_origin():

@@ -20,6 +20,8 @@ is full; the overflow case (a per-shard cap of c // n + 8 reached) is held
 to the JAX package's membership.
 """
 
+import functools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -34,6 +36,7 @@ from hessgpu_tpu_torch.parallel.distributed import local_mesh
 from test_torch_pipeline import _np_table, _torch_table
 from test_torch_pipeline_default import _assert_features_agree
 from test_torch_spatial import _jax_mesh, _smooth_image
+from _torch_graph_route import graph_route  # noqa: F401
 from _torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -46,14 +49,37 @@ _DESCRIBE_CASES = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_table(n, case):
+    """The JAX package's sharded program over n virtual devices, run once
+    per process for the cases that hold the port to it."""
+    h, w, kw = _DESCRIBE_CASES[case]
+    return _np_table(jsp.sharded_detect_and_describe(
+        jnp.asarray(_smooth_image(h, w)), JConfig(threshold=0.001, **kw),
+        _jax_mesh(n)))
+
+
 @pytest.mark.parametrize("n", [2, 8])
 @pytest.mark.parametrize("case", list(_DESCRIBE_CASES))
 def test_sharded_detect_and_describe_matches_jax(n, case):
+    _check_against_jax(n, case)
+
+
+@pytest.mark.parametrize("n", [2, 8])
+@pytest.mark.parametrize("case", list(_DESCRIBE_CASES))
+def test_the_captured_sharded_program_matches_jax(n, case, graph_route):
+    """The function a card captures on an in-process mesh (the sharded
+    pipeline, the level-major gather and the table's assembly as one
+    graph, _sharded_program), run here by the graph_route fixture."""
+    _check_against_jax(n, case)
+    assert [c.cache for c in graph_route] == [tsp._SPATIAL_GRAPHS]
+
+
+def _check_against_jax(n, case):
     h, w, kw = _DESCRIBE_CASES[case]
     img = _smooth_image(h, w)
-    jc, tc = JConfig(threshold=0.001, **kw), SiftConfig(threshold=0.001, **kw)
-    want = _np_table(jsp.sharded_detect_and_describe(jnp.asarray(img), jc,
-                                                     _jax_mesh(n)))
+    tc = SiftConfig(threshold=0.001, **kw)
+    want = _jax_table(n, case)
     table, aux = tsp.sharded_detect_and_describe(
         img, tc, local_mesh(n), device="cpu", with_aux=True)
     got = _torch_table(table)
