@@ -11,8 +11,8 @@ wrapper counts its launches. Phases, one JSON line each:
 
   device     the card (name and power limit as nvidia-smi gives them)
   build      seconds to build the kernel library
-  kernels    each of the six kernels against its plain PyTorch version on
-             the card, at every shape the main path gives it (640x480, B=16,
+  kernels    each of the six detection kernels against its plain PyTorch
+             version on the card, at every shape the main path gives it (640x480, B=16,
              five octaves; keypoint tables 16 x 2048 and 16 x 3072) plus an
              odd shape and one smaller than the chain's halo, Hessian and
              DoG, and a 33-tap chain that runs in groups; the pyramid built
@@ -25,7 +25,14 @@ wrapper counts its launches. Phases, one JSON line each:
              an all-invalid table and on large supports (sigma x
              LARGE_SIGMA_FACTOR); timings by CUDA events
              (warm-up, then the median of REPS launches, the L2 cache
-             flushed and the card kept busy ~1 ms before each)
+             flushed and the card kept busy ~1 ms before each); the
+             RANSAC cores' small SVDs (csrc/linalg.cu, linalg_kernels):
+             null_vector at (512, 8, 9), (428, 9), (2048, 9), (256, 12, 12)
+             and on a degenerate batch, svd3 at (512, 3, 3), (3, 3),
+             (256, 3, 3) and on zero, rank-1 and rank-2 matrices, each
+             bit-equal to its plain version (ops/linalg.py), the null
+             vectors against the card's float64 SVD, ms beside the plain
+             version's, torch.linalg.svd's (with its own sync) and the bound
   main_path  detect_batch on 16 seeded 640x480 textures, through the
              kernels (launch counts read), against the same batch through
              the plain versions on the card, frame 0 against its pinned
@@ -91,7 +98,13 @@ wrapper counts its launches. Phases, one JSON line each:
              features (the CPU at one torch thread, where it repeats
              itself): all 40 frames registered on both, the same view_ids,
              the card's ATE at most twice the JAX package's (JAX_SFM_ATE);
-             seconds for detection, reconstruction, its BA and its SVDs
+             the card's reconstruction launching null_vector and svd3
+             twice a fundamental RANSAC and once a PnP; the share of PnP
+             hypotheses kept (ok, positive scale) on the card and the CPU;
+             then the card under SFM_TORCH_STREAMS torch.Generator streams
+             (scripts/torch_sfm_streams.py), each 40 of 40 within the ATE
+             limit; seconds for detection, reconstruction, its BA and its
+             SVDs outside the RANSAC cores
   spatial    one 4032x6048 frame (make_texture's blobs at the 640x480
              frames' density, seed SPATIAL_SEED) through
              sharded_detect_and_describe on in-process meshes of 1, 2 and 4
@@ -120,8 +133,10 @@ wrapper counts its launches. Phases, one JSON line each:
              carry the last bits); each rank's ms
   sfm_mesh   the sfm phase's 40 frames reconstructed on the card with a
              2-shard in-process mesh (every BA ends with the distributed LM
-             polish): all registered, ATE within the sfm phase's limit,
-             seconds
+             polish; the periodic ones opt in to polish_prune_px =
+             SFM_MESH_POLISH_PRUNE_PX): all registered, ATE within the sfm
+             phase's limit, seconds; the default polish (the JAX
+             package's) once more, its ATE reported beside the limit
   dryrun     dryrun_multichip(8) (hessgpu_tpu_torch/entry.py) on the card:
              seconds, launches
   compiled   the JAX package's jit boundaries as captured CUDA graphs
@@ -150,7 +165,9 @@ wrapper counts its launches. Phases, one JSON line each:
              graph route bit-equal to the eager route, with ms in turns
              over shorter windows, host launches a call (the profiler's
              runtime calls), device launches and busy ms, captures, eager
-             first calls, capture seconds, pool bytes, segments: describe
+             first calls, capture seconds, pool bytes, graphs replayed a
+             call, host syncs a call eager and replayed
+             (torch.cuda.set_sync_debug_mode): describe
              (frame 0's keypoints computing theta and given theta; the
              bucket's first n slots equal to an unpadded eager run),
              describe kernels (describe_keypoints' own graph, captured
@@ -162,7 +179,9 @@ wrapper counts its launches. Phases, one JSON line each:
              the 2048 x 2048 bucket, mutual and not; the SiftMatcher's ms
              in turns), guided (the gate and the gated match), ransac_f
              (the sequence's first pair with its JAX draws), pnp (300
-             seeded correspondences in a bucket of 512), posegraph (a
+             seeded correspondences in a bucket of 512; each core one graph
+             holding its null_vector and svd3 launches, no host sync on
+             either route), posegraph (a
              drifted 12-camera loop, 20 steps); then the mesh boundaries
              on in-process meshes (compiled_mesh), the same report each:
              the 4032x6048 frame over 1, 2 and 4 bands (the graph's
@@ -188,7 +207,9 @@ wrapper counts its launches. Phases, one JSON line each:
              "all" runs over the "base" runs' median);
              every cache's clear_cache() returning the pools
   blur       the octave-0 blur's ms beside the card's name and power limit
-  {"kernels": [...]}   one entry per kernel: launches on the main path,
+  {"kernels": [...]}   one entry per kernel, the six detection kernels
+             and the two small SVDs: launches on the main path (the small
+             SVDs': the sfm phase's reconstruction on the card),
              error, times, bound; path_ms and path_bound_ms sum a batch's
              launches (every octave shape); octave_chain adds its time per
              octave with and without the decimation and from a base (the
@@ -265,7 +286,8 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12       # float32 outside the tensor cores
 # downsample2 is the chain's decimation epilogue on the main path
 EXPECTED_LAUNCHES = {"blur": 1, "octave_chain": 5, "downsample2": 0,
-                     "detect_octave": 5, "orientation": 0, "descriptor": 0}
+                     "detect_octave": 5, "orientation": 0, "descriptor": 0,
+                     "null_vector": 0, "svd3": 0}
 EXPECTED_LAUNCHES_DEFAULT = dict(EXPECTED_LAUNCHES, orientation=1,
                                  descriptor=1)
 # per-kernel details that the kernels line carries where a kernel has them
@@ -279,7 +301,10 @@ DETAIL = ("fused_into", "octave_ms_without_decimation",
           "octave_ms", "valid_cells", "bound_ms_dense_contract",
           "path_bound_ms_dense_contract", "octave0_warp_share_nms",
           "octave0_warp_share_keypoint", "ms_960x1280", "launches_by_path",
-          "spatial_n4_device_ms", "launches_per_default_replay")
+          "spatial_n4_device_ms", "launches_per_default_replay",
+          "ms_by_shape", "wall_ms_by_shape", "plain_ms_by_shape",
+          "library_ms_by_shape", "bound_ms_by_shape",
+          "min_cos_vs_float64_svd")
 # ba phase: bench_ba.py's problem (64 cameras, 4096 points, every camera
 # sees every 8th point: 32768 observations), built here in NumPy
 BA_CAMS, BA_PTS, BA_SEE_EVERY = 64, 4096, 8
@@ -306,6 +331,12 @@ SPATIAL_REPS = 5
 BATCH_MESH, BATCH_MESH_REPS = 2, 10
 BA_MESHES = (2, 8)
 SFM_MESH = 2
+# the sfm_mesh runs opt in to reconstruct_sequence(polish_prune_px=): the
+# periodic BAs' distributed polish over the observations within 4 px (the
+# final BA's prune threshold). The default, the JAX package's polish over
+# every observation, is run once beside them and reported, not held to the
+# limit (a reference-side caveat: ROADMAP Queue 3, PERF.md section 6).
+SFM_MESH_POLISH_PRUNE_PX = 4.0
 DRYRUN_SHARDS = 8
 # compiled phase: host ms per call as the best of COMPILED_WINDOWS windows of
 # about COMPILED_WINDOW_S seconds each (bench.py's reasoning against host
@@ -326,8 +357,7 @@ BOUNDARY_WINDOW_S = 0.2
 # emptied, as a process that reconstructs one sequence starts, so a run
 # pays its own captures (one run's seconds move by a second between runs on
 # a shared host).
-SFM_TURNS = ("eager", "base", "all", "all", "base", "base", "all", "all",
-             "base")
+SFM_TURNS = ("eager", "base", "all", "all", "base")
 MATCH_N = (2000, 1948)
 PNP_N, PNP_SEED = 300, 5
 PG_VIEWS = 12
@@ -338,7 +368,8 @@ BIG_HEIGHT, BIG_WIDTH = 2400, 3200
 # and 4 level blurs an octave, 7 decimations, a detect an octave, one
 # orientation and one descriptor launch over every level and band
 EXPECTED_SPATIAL = {"blur": 33, "octave_chain": 0, "downsample2": 7,
-                    "detect_octave": 8, "orientation": 1, "descriptor": 1}
+                    "detect_octave": 8, "orientation": 1, "descriptor": 1,
+                    "null_vector": 0, "svd3": 0}
 # the same as a graph's launches (read at its capture: the kernels launched
 # at least once)
 EXPECTED_SPATIAL_GRAPH = {k: n for k, n in EXPECTED_SPATIAL.items() if n}
@@ -350,7 +381,8 @@ KERNEL_SYMBOL = {"blur": "blur_kernel", "octave_chain": "chain_kernel",
                  "downsample2": "downsample2_kernel",
                  "detect_octave": "detect_kernel",
                  "orientation": "orientation_kernel",
-                 "descriptor": "descriptor_kernel"}
+                 "descriptor": "descriptor_kernel",
+                 "null_vector": "null_vector_", "svd3": "svd3_kernel"}
 KERNEL_INFO = {
     "blur": ("hessgpu_tpu_torch/csrc/conv.cu",
              "hessgpu_tpu/ops/pallas/conv.py:381"),
@@ -364,7 +396,23 @@ KERNEL_INFO = {
                     "hessgpu_tpu/ops/pallas/patch.py:893"),
     "descriptor": ("hessgpu_tpu_torch/csrc/patch.cu",
                    "hessgpu_tpu/ops/pallas/patch.py:584"),
+    # no pallas_call: the JAX package's jnp.linalg.svd inside its jitted
+    # RANSACs, the null vector and the 3 x 3 SVD of each solve
+    "null_vector": ("hessgpu_tpu_torch/csrc/linalg.cu",
+                    "hessgpu_tpu/sfm/twoview.py:52,127,234 (jnp.linalg.svd "
+                    "in jax.jit; not a TPU kernel)"),
+    "svd3": ("hessgpu_tpu_torch/csrc/linalg.cu",
+             "hessgpu_tpu/sfm/twoview.py:55,129,237 (jnp.linalg.svd in "
+             "jax.jit; not a TPU kernel)"),
 }
+# the kernels of the SfM path (their launches are the sfm phase's); the
+# other six are the detection path's
+SFM_KERNELS = ("null_vector", "svd3")
+# H100 SXM, NVIDIA data sheet: float64 outside the tensor cores
+F64_FLOPS_PER_S = 34e12
+# the sfm phase's RANSAC streams past the JAX draws: the torch.Generator
+# streams of scripts/torch_sfm_streams.py
+SFM_TORCH_STREAMS = 3
 
 
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -800,8 +848,9 @@ def mesh_phases(dev, smi_line, same, max_abs, launches_by_path, frames,
     seq_feats, seq_K, seq_centers = seq
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rec = tinc.reconstruct_sequence(seq_feats, seq_K,
-                                    mesh=local_mesh(SFM_MESH), device="cuda")
+    rec = tinc.reconstruct_sequence(
+        seq_feats, seq_K, mesh=local_mesh(SFM_MESH),
+        polish_prune_px=SFM_MESH_POLISH_PRUNE_PX, device="cuda")
     torch.cuda.synchronize()
     sfm_s = time.perf_counter() - t0
     if rec is None or rec.view_ids != list(range(len(seq_feats))):
@@ -809,9 +858,18 @@ def mesh_phases(dev, smi_line, same, max_abs, launches_by_path, frames,
     ate = ate_rmse(camera_centers(rec.R, rec.t), seq_centers[rec.view_ids])
     if not ate <= 2 * JAX_SFM_ATE:
         fail(f"sfm_mesh: ATE {ate}, limit {2 * JAX_SFM_ATE}")
+    ref = tinc.reconstruct_sequence(seq_feats, seq_K,
+                                    mesh=local_mesh(SFM_MESH), device="cuda")
+    ref_ate = None if ref is None else ate_rmse(
+        camera_centers(ref.R, ref.t), seq_centers[ref.view_ids])
     emit("sfm_mesh", frames=len(seq_feats), shards=SFM_MESH, seconds=sfm_s,
+         polish_prune_px=SFM_MESH_POLISH_PRUNE_PX,
          registered=rec.num_cameras, points=rec.num_points, ate=ate,
          ate_limit=2 * JAX_SFM_ATE, mesh_none_ate=sfm_card_ate,
+         default_polish=dict(
+             registered=None if ref is None else ref.num_cameras,
+             ate=ref_ate, within_limit=ref_ate is not None
+             and ref_ate <= 2 * JAX_SFM_ATE, held_to_limit=False),
          nvidia_smi=smi_line)
 
     # ---- dryrun: dryrun_multichip on an 8-shard in-process mesh ------------
@@ -834,10 +892,41 @@ def boundary_checks(same, eager, in_turns):
     """(equal, boundary): equal(a, b) compares results field by field, bit
     for bit; boundary(what, cache, call) holds a graph entry point's calls
     to its eager route and reports what the key's graph costs."""
+    import warnings
+
     import numpy as np
     import torch
 
     from hessgpu_tpu_torch.utils.timing import device_profile
+
+    def graphs_replayed(fn):
+        """The CUDA graphs one call of fn replays."""
+        real = torch.cuda.CUDAGraph.replay
+        n = [0]
+
+        def counted(self):
+            n[0] += 1
+            return real(self)
+        torch.cuda.CUDAGraph.replay = counted
+        try:
+            fn()
+        finally:
+            torch.cuda.CUDAGraph.replay = real
+        return n[0]
+
+    def host_syncs(fn):
+        """The calls of one fn() that synchronised with the host
+        (torch.cuda.set_sync_debug_mode's warnings), by file:line."""
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return [f"{os.path.relpath(w.filename, REPO_DIR)}:{w.lineno}"
+                for w in caught if "synchroniz" in str(w.message)]
 
     def equal(a, b):
         if isinstance(a, dict):
@@ -862,6 +951,7 @@ def boundary_checks(same, eager, in_turns):
         ms = in_turns(eager(call), call, BOUNDARY_WINDOW_S)
         prof_e = device_profile(eager(call), runs=3)
         prof_g = device_profile(call, runs=3)
+        syncs_e, syncs_g = host_syncs(eager(call)), host_syncs(call)
         report = dict(
             what=what, bit_equal_to_eager=True, calls_checked=calls,
             ms_per_call_eager_graph_graph_eager=ms,
@@ -874,7 +964,10 @@ def boundary_checks(same, eager, in_turns):
             captures=cache.captures - cap0, capture_at=st.capture_at,
             capture_s=st.capture_s, graph_kept_bytes=st.kept_bytes,
             graph_pool_reserved_bytes=st.pool_reserved_bytes,
-            segments=st.segments, eager_between=st.eager_between,
+            graphs_replayed_per_call=graphs_replayed(call),
+            host_syncs_per_call_eager=len(syncs_e),
+            host_syncs_per_call_graph=len(syncs_g),
+            host_syncs_eager_at=sorted(set(syncs_e))[:8],
             graph_kernel_launches=st.launches, **extra)
         return want, report
 
@@ -1049,6 +1142,18 @@ def compiled_boundaries(dev, smi_line, same, frames, seq, eager, sync,
          what="guided", nvidia_smi=smi_line)
 
     # ---- the RANSAC cores: the SfM's first pair, and a PnP of its scale ----
+    def one_program(rep, what, launches):
+        """A RANSAC core is one graph with its small-SVD kernels inside,
+        and its replay reads nothing back to the host; the eager route's
+        host syncs are reported with their places."""
+        if rep["graphs_replayed_per_call"] != 1 \
+                or rep["graph_kernel_launches"] != launches \
+                or rep["host_syncs_per_call_graph"]:
+            fail(f"compiled: {what}: {rep['graphs_replayed_per_call']} "
+                 f"graphs a call holding {rep['graph_kernel_launches']} "
+                 f"(expected one holding {launches}), "
+                 f"{rep['host_syncs_per_call_graph']} host syncs a replay")
+
     seq_feats, seq_K = seq[0], seq[1]
     mm = tinc._match_pair(seq_feats[0], seq_feats[1], dev)
     q1 = np.stack([seq_feats[0]["x"][mm[:, 0]], seq_feats[0]["y"][mm[:, 0]]],
@@ -1065,6 +1170,7 @@ def compiled_boundaries(dev, smi_line, same, frames, seq, eager, sync,
     want, rep = boundary("ransac_f", ttv._RANSAC_F_GRAPHS, lambda:
                          ttv.ransac_fundamental_from_samples(idx, p1, p2,
                                                              valid))
+    one_program(rep, "ransac_f", {"null_vector": 2, "svd3": 2})
     emit("compiled", matches=nm, hypotheses=512,
          inliers=int(want.num_inliers), **rep, nvidia_smi=smi_line)
 
@@ -1088,8 +1194,12 @@ def compiled_boundaries(dev, smi_line, same, frames, seq, eager, sync,
     ttv.ransac_pnp_from_samples.clear_cache()
     want, rep = boundary("pnp", ttv._PNP_GRAPHS,
                          lambda: ttv.ransac_pnp_from_samples(*pargs))
+    one_program(rep, "pnp", {"null_vector": 1, "svd3": 1})
+    _, _, ok, scale = ttv.pnp_hypotheses(pargs[0], *pargs[1:3], pargs[4])
     emit("compiled", correspondences=PNP_N, bucket=pcap, hypotheses=256,
-         inliers=int(want.num_inliers), **rep, nvidia_smi=smi_line)
+         inliers=int(want.num_inliers),
+         hypotheses_kept=int((ok & (scale > 0)).sum()), **rep,
+         nvidia_smi=smi_line)
 
     # ---- the pose graph: a drifted 12-camera loop, 20 steps ----------------
     C = PG_VIEWS
@@ -1429,7 +1539,8 @@ def compiled_mesh(dev, smi_line, same, frames, ba_np, seq, eager, sync,
         sync()
         t0 = time.perf_counter()
         run = lambda: tinc.reconstruct_sequence(  # noqa: E731
-            seq_feats, seq_K, mesh=tdist.local_mesh(SFM_MESH), device="cuda")
+            seq_feats, seq_K, mesh=tdist.local_mesh(SFM_MESH),
+            polish_prune_px=SFM_MESH_POLISH_PRUNE_PX, device="cuda")
         rec = eager(run)() if mode == "eager" else run()
         sync()
         seconds = time.perf_counter() - t0
@@ -1452,7 +1563,8 @@ def compiled_mesh(dev, smi_line, same, frames, ba_np, seq, eager, sync,
         fail("compiled: sfm_mesh: the run through the graphs differs from "
              "the eager run")
     emit("compiled", what="sfm_mesh", frames=len(seq_feats), shards=SFM_MESH,
-         first_pass_each=True, bit_equal_to_eager=True, turns=turns,
+         polish_prune_px=SFM_MESH_POLISH_PRUNE_PX, first_pass_each=True,
+         bit_equal_to_eager=True, turns=turns,
          ate_limit=2 * JAX_SFM_ATE, nvidia_smi=smi_line)
     held = {k: len(c) for k, c in caches.items()}
     for clear in clears:
@@ -1933,9 +2045,15 @@ def main():
             (path, n.get(name, 0)) for path, n in boundary_launches.items())
         t["spatial_n4_device_ms"] = ran["spatial_kernel_ms"][name]
         t["launches_per_default_replay"] = replay_launches[name]
+        # the detection kernels' launches are the default main path's; the
+        # small SVDs' the sfm phase's reconstruction on the card
+        main = ran["launches_sfm" if name in SFM_KERNELS else "launches_def"]
+        if main[name] < 1 and (name in SFM_KERNELS
+                               or EXPECTED_LAUNCHES_DEFAULT[name]):
+            fail(f"{name}: launched no time on its main path")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": ran["launches_def"][name],
+            "replaces": replaces, "launches": main[name],
             "max_abs_err": ran["errs"][name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
@@ -1947,6 +2065,202 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def ransac_systems(seed):
+    """The RANSAC cores' systems on a seeded two-view scene (300 points at
+    640x480, 0.3 px noise): the 512 eight-point systems (512, 8, 9), the
+    weighted refit's (N, 9) at N = 428 (the sfm sequence's first pair has
+    428 matches) and 2048, the 256 DLT systems (256, 12, 12); and a batch
+    of degenerate ones: a repeated draw, the zero matrix, a sample of 4
+    points drawn twice."""
+    import numpy as np
+    import torch
+
+    from hessgpu_tpu_torch.sfm import twoview as ttv
+
+    rng = np.random.RandomState(seed)
+    n = 300
+    X = rng.uniform(-1, 1, (n, 3)) * [3, 2, 1] + [0, 0, 6]
+    a = 0.1
+    R2 = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                   [-np.sin(a), 0, np.cos(a)]])
+    Xc = X @ R2.T + [-0.5, 0.0, 0.0]
+    f = 600.0
+    p1 = X[:, :2] / X[:, 2:] * f + [320, 240] + rng.normal(0, 0.3, (n, 2))
+    p2 = Xc[:, :2] / Xc[:, 2:] * f + [320, 240] + rng.normal(0, 0.3, (n, 2))
+    p1, p2 = (torch.from_numpy(p.astype(np.float32)) for p in (p1, p2))
+
+    def eight(idx):
+        n1, _ = ttv._normalize_points(p1[idx])
+        n2, _ = ttv._normalize_points(p2[idx])
+        return ttv._design(n1, n2)
+
+    def refit(m):
+        idx = torch.from_numpy(rng.randint(0, n, m))
+        return eight(idx)
+
+    idx = torch.from_numpy(rng.randint(0, n, (512, 8)))
+    pidx = rng.randint(0, n, (256, 6))
+    Xh = np.concatenate([X[pidx], np.ones((256, 6, 1))], -1)
+    xn = (Xc[pidx, :2] / Xc[pidx, 2:]).astype(np.float32)
+    z = np.zeros_like(Xh)
+    dlt = np.concatenate([
+        np.concatenate([z, -Xh, xn[..., 1, None] * Xh], -1),
+        np.concatenate([Xh, z, -xn[..., 0, None] * Xh], -1)], -2)
+    degenerate = eight(idx[:4]).clone()
+    degenerate[0, 5] = degenerate[0, 2]
+    degenerate[1] = 0.0
+    degenerate[2, 4:] = degenerate[2, :4]
+    return {"512x8x9": eight(idx), "428x9": refit(428),
+            "2048x9": refit(2048),
+            "256x12x12": torch.from_numpy(dlt.astype(np.float32)),
+            "degenerate_4x8x9": degenerate}
+
+
+def linalg_kernels(dev, time_ms, must_equal, checked):
+    """null_vector and svd3 (csrc/linalg.cu) against their plain versions
+    (ops/linalg.py) on the card at the RANSAC cores' shapes and on a
+    degenerate batch, bit for bit (the same sums, rotations and sign rule);
+    the null vectors against the card's float64 SVD where the gap
+    sigma_{n-1} / sigma_1 >= 1e-3. Times: the kernel by CUDA events
+    (time_ms), the plain version, and torch.linalg.svd at the same shape
+    (library_ms: the host clock around the call and its own sync, median of
+    REPS; the kernel's wall_ms beside it the same way). Bound: the bytes
+    read and written over HBM_BYTES_PER_S against the float64 operations
+    the function needs over F64_FLOPS_PER_S: the Gram matrix of the n real
+    columns, then n (n - 1) / 2 symmetric rotations a sweep (the padded
+    index's rotations, which the kernel skips, not counted) for the sweeps
+    after which the results stop changing (ops/linalg.py: 8 for null_vector,
+    4 for svd3; the kernels run NULL_VECTOR_SWEEPS / SVD3_SWEEPS)."""
+    import numpy as np
+    import torch
+
+    from hessgpu_tpu_torch.ops import linalg
+    from hessgpu_tpu_torch.ops.cuda import linalg as cuda_linalg
+
+    null_vector_sweeps, svd3_sweeps = 8, 4
+
+    def wall(fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def bound(nbytes, flops):
+        tb = nbytes / HBM_BYTES_PER_S * 1e3
+        tf = flops / F64_FLOPS_PER_S * 1e3
+        return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+    def null_vector_bound(B, M, n):
+        # a rotation: tau, t, c, s and the two diagonal entries (17); rows
+        # p and q of G once, by symmetry, and columns p and q of V (6 n each)
+        rotation = 12 * n + 17
+        flops = B * (M * n * (n + 1) + null_vector_sweeps
+                     * n * (n - 1) // 2 * rotation)
+        return bound(4 * B * (M * n + n), flops)
+
+    def svd3_bound(B):
+        # a rotation: three dot products (15), zeta, t, c, s (13), two
+        # columns of W and of V (36); then the three norms and U (27)
+        flops = B * (svd3_sweeps * 3 * 64 + 27)
+        return bound(4 * B * (9 + 9 + 3 + 9), flops)
+
+    systems = ransac_systems(11)
+    by_shape, cos_min = {}, {}
+    for name, A in systems.items():
+        A = A.to(dev)
+        got = cuda_linalg.null_vector(A)
+        must_equal("null_vector", name, got, linalg.null_vector_plain(A))
+        checked["null_vector"] += 1
+        if bool(got.isnan().any()):
+            fail(f"null_vector: NaN at {name}")
+        ref = torch.linalg.svd(A.double(), full_matrices=True)
+        sv = ref.S
+        gap = (sv[..., -2] if A.shape[-2] >= A.shape[-1] else sv[..., -1]) \
+            / sv[..., 0].clamp_min(1e-300)
+        cos = (got.double() * ref.Vh[..., -1, :]).sum(-1).abs()
+        det = gap >= 1e-3
+        cos_min[name] = float(cos[det].min()) if bool(det.any()) else None
+        if bool(det.any()) and cos_min[name] < 1 - 1e-5:
+            fail(f"null_vector: {name}: |<v, v_svd>| {cos_min[name]}")
+        if name.startswith("degenerate"):
+            continue
+        B = A[..., 0, 0].numel()
+        M, n = A.shape[-2:]
+        by_shape[name] = dict(
+            ms=time_ms(lambda: cuda_linalg.null_vector(A)),
+            wall_ms=wall(lambda: cuda_linalg.null_vector(A)),
+            plain_ms=time_ms(lambda: linalg.null_vector_plain(A), reps=3),
+            library_ms=wall(lambda: torch.linalg.svd(A, full_matrices=True)),
+            bound=null_vector_bound(B, M, n))
+    timing = {}
+    # a fundamental RANSAC launches the eight-point and the refit shapes, a
+    # PnP the DLT shape
+    path = ("512x8x9", "428x9", "256x12x12")
+    timing["null_vector"] = dict(
+        shape=[512, 8, 9], **{k: by_shape["512x8x9"][k] for k in
+                              ("ms", "plain_ms", "library_ms", "bound")},
+        ms_by_shape={k: v["ms"] for k, v in by_shape.items()},
+        wall_ms_by_shape={k: v["wall_ms"] for k, v in by_shape.items()},
+        plain_ms_by_shape={k: v["plain_ms"] for k, v in by_shape.items()},
+        library_ms_by_shape={k: v["library_ms"] for k, v in by_shape.items()},
+        bound_ms_by_shape={k: v["bound"][0] for k, v in by_shape.items()},
+        path_ms=sum(by_shape[k]["ms"] for k in path),
+        path_bound_ms=sum(by_shape[k]["bound"][0] for k in path),
+        min_cos_vs_float64_svd=cos_min)
+
+    rng = np.random.RandomState(12)
+    degenerate = torch.zeros(5, 3, 3)
+    degenerate[1] = torch.tensor([[1.0, 2, 3], [4, 5, 9], [7, 8, 15]])
+    degenerate[2] = torch.tensor([[1.0, 2, 3], [2, 4, 6], [3, 6, 9]])
+    degenerate[3] = torch.eye(3)
+    degenerate[4] = torch.tensor([[1.0, 0, 0], [0, 1, 0], [0, 0, 0]])
+    mats = {"512x3x3": torch.from_numpy(rng.randn(512, 3, 3)).float(),
+            "3x3": torch.from_numpy(rng.randn(3, 3)).float(),
+            "256x3x3": torch.from_numpy(rng.randn(256, 3, 3)).float(),
+            "degenerate_5x3x3": degenerate}
+    s_by = {}
+    for name, A in mats.items():
+        A = A.to(dev)
+        got = cuda_linalg.svd3(A)
+        for part, g, w in zip("USV", got, linalg.svd3_plain(A)):
+            must_equal("svd3", f"{name} {part}", g, w)
+        checked["svd3"] += 1
+        U, S, Vh = (x.double() for x in got)
+        err = float(((U * S[..., None, :]) @ Vh - A.double()).abs().max())
+        orth = float((U.mT @ U - torch.eye(3, device=dev,
+                                           dtype=U.dtype)).abs().max())
+        if any(bool(x.isnan().any()) for x in got) or err > 1e-5 \
+                or orth > 1e-6:
+            fail(f"svd3: {name}: rebuilt to {err}, U orthogonal to {orth}")
+        if name.startswith("degenerate"):
+            continue
+        B = A[..., 0, 0].numel()
+        s_by[name] = dict(
+            ms=time_ms(lambda: cuda_linalg.svd3(A)),
+            wall_ms=wall(lambda: cuda_linalg.svd3(A)),
+            plain_ms=time_ms(lambda: linalg.svd3_plain(A), reps=3),
+            library_ms=wall(lambda: torch.linalg.svd(A)),
+            bound=svd3_bound(B))
+    path = ("512x3x3", "3x3", "256x3x3")
+    timing["svd3"] = dict(
+        shape=[512, 3, 3], **{k: s_by["512x3x3"][k] for k in
+                              ("ms", "plain_ms", "library_ms", "bound")},
+        ms_by_shape={k: v["ms"] for k, v in s_by.items()},
+        wall_ms_by_shape={k: v["wall_ms"] for k, v in s_by.items()},
+        plain_ms_by_shape={k: v["plain_ms"] for k, v in s_by.items()},
+        library_ms_by_shape={k: v["library_ms"] for k, v in s_by.items()},
+        bound_ms_by_shape={k: v["bound"][0] for k, v in s_by.items()},
+        path_ms=sum(s_by[k]["ms"] for k in path),
+        path_bound_ms=sum(s_by[k]["bound"][0] for k in path))
+    return timing
 
 
 def eager_phases(dev, smi_line):
@@ -2612,11 +2926,14 @@ def eager_phases(dev, smi_line):
         timing[name]["path_ms"] = timing[name]["ms"]
     for name in ("orientation", "descriptor"):   # one launch a batch
         timing[name]["path_bound_ms"] = timing[name]["bound"][0]
+    # the SfM path's kernels: the RANSAC cores' small SVDs
+    timing.update(linalg_kernels(dev, time_ms, must_equal, checked))
     emit("kernels",
          max_abs_err=errs, detect=detect_errs,
          exact=["blur", "octave_chain", "downsample2",
                 "detect_octave: valid; ftype response dx dy ds at the "
-                "valid cells"],
+                "valid cells", "null_vector (the tall refit too)",
+                "svd3: U S Vh"],
          tolerances={"grad_rel": 1e-6, "rot_abs": 2e-6,
                      "votes_and_raw_descriptor_rel": VOTE_TOL,
                      "normalized_descriptor_abs": DESC_TOL},
@@ -3629,6 +3946,7 @@ def eager_phases(dev, smi_line):
 
     # ---- sfm: the synthetic TUM sequence, detect + reconstruct + ATE ------
     from hessgpu_tpu_torch.sfm import incremental as tinc
+    from hessgpu_tpu_torch.sfm import twoview as ttv
     from hessgpu_tpu_torch.sfm.evaluate import ate_rmse, camera_centers
     from hessgpu_tpu_torch.sfm.synthetic import tum_sequence
 
@@ -3648,11 +3966,16 @@ def eager_phases(dev, smi_line):
              f"{want_launches}")
     launches_by_path[f"sfm_{SFM_FRAMES}_frames"] = launches
 
-    def reconstruct(device):
-        """reconstruct_sequence on `device`, its BA and (on the card) its
-        SVDs timed by the host clock around a synchronize."""
-        stats = {"ba_s": 0.0, "svd": {}}
+    def reconstruct(device, sampler=None):
+        """reconstruct_sequence on `device` (under `sampler`'s RANSAC draws,
+        else the JAX package's), its BA and (on the card) its SVDs outside
+        the RANSAC cores timed by the host clock around a synchronize; the
+        cores' calls counted, each PnP's arguments kept."""
+        stats = {"ba_s": 0.0, "svd": {}, "ransac_f_calls": 0}
+        pnp_args = []
         real_ba, real_svd = tinc.bundle_adjust, torch.linalg.svd
+        real_f = tinc.ransac_fundamental_from_samples
+        real_p, real_draws = tinc.ransac_pnp_from_samples, tinc.sample_indices
 
         def timed_ba(*a, **kw):
             t = time.perf_counter()
@@ -3672,8 +3995,20 @@ def eager_phases(dev, smi_line):
             k[1] += time.perf_counter() - t
             return out
 
+        def counted_f(*a, **kw):
+            stats["ransac_f_calls"] += 1
+            return real_f(*a, **kw)
+
+        def kept_p(*a, **kw):
+            pnp_args.append(a[:3] + a[4:5])       # idx, X, uv, K
+            return real_p(*a, **kw)
+
         tinc.bundle_adjust = timed_ba
         torch.linalg.svd = timed_svd
+        tinc.ransac_fundamental_from_samples = counted_f
+        tinc.ransac_pnp_from_samples = kept_p
+        if sampler is not None:
+            tinc.sample_indices = sampler
         try:
             t = time.perf_counter()
             rec = tinc.reconstruct_sequence(seq_feats, seq_K, device=device)
@@ -3681,17 +4016,44 @@ def eager_phases(dev, smi_line):
             stats["seconds"] = time.perf_counter() - t
         finally:
             tinc.bundle_adjust, torch.linalg.svd = real_ba, real_svd
+            tinc.ransac_fundamental_from_samples = real_f
+            tinc.ransac_pnp_from_samples = real_p
+            tinc.sample_indices = real_draws
         if rec is None:
             fail(f"sfm: reconstruct_sequence on {device} returned None")
         ids = rec.view_ids
         stats["svd_s"] = sum(v[1] for v in stats["svd"].values())
         stats.update(
             registered=rec.num_cameras, points=rec.num_points,
+            pnp_calls=len(pnp_args),
             ate=ate_rmse(camera_centers(rec.R, rec.t), seq_centers[ids]))
-        return rec, stats
+        return rec, stats, pnp_args
 
-    rec_card, sfm_card = reconstruct("cuda")
-    rec_cpu, sfm_cpu = one_torch_thread(reconstruct, "cpu")
+    def pnp_kept_share(pnp_args):
+        """The share of the PnP hypotheses with ok and a positive scale (the
+        ones whose rotation is right; ROADMAP's reference-side caveats)."""
+        kept = total = 0
+        for idx, X, uv, K in pnp_args:
+            _, _, ok, scale = ttv.pnp_hypotheses(idx, X, uv, K)
+            kept += int((ok & (scale > 0)).sum())
+            total += ok.numel()
+        return kept / max(total, 1)
+
+    reset_launch_counts()
+    rec_card, sfm_card, pnp_card = reconstruct("cuda")
+    sfm_launches = launch_counts()
+    want_linalg = 2 * sfm_card["ransac_f_calls"] + sfm_card["pnp_calls"]
+    if (sfm_launches["null_vector"], sfm_launches["svd3"]) != \
+            (want_linalg, want_linalg) or want_linalg == 0:
+        fail(f"sfm: the RANSAC cores launched null_vector "
+             f"{sfm_launches['null_vector']} and svd3 {sfm_launches['svd3']} "
+             f"times, {want_linalg} each expected (2 a fundamental RANSAC, "
+             "1 a PnP)")
+    launches_by_path[f"sfm_{SFM_FRAMES}_frames_reconstruction"] = \
+        sfm_launches
+    rec_cpu, sfm_cpu, pnp_cpu = one_torch_thread(reconstruct, "cpu")
+    sfm_card["pnp_kept_share"] = pnp_kept_share(pnp_card)
+    sfm_cpu["pnp_kept_share"] = pnp_kept_share(pnp_cpu)
     if rec_card.view_ids != list(range(SFM_FRAMES)) \
             or rec_cpu.view_ids != rec_card.view_ids:
         fail(f"sfm: view_ids on the card {rec_card.view_ids}, on the CPU "
@@ -3699,10 +4061,27 @@ def eager_phases(dev, smi_line):
     if not sfm_card["ate"] <= 2 * JAX_SFM_ATE:
         fail(f"sfm: ATE {sfm_card['ate']} on the card, limit "
              f"{2 * JAX_SFM_ATE} (twice the JAX package's)")
+    # the card under the torch.Generator streams of
+    # scripts/torch_sfm_streams.py
+    sys.path.insert(0, os.path.join(REPO_DIR, "scripts"))
+    from torch_sfm_streams import torch_stream
+    streams = []
+    for k in range(SFM_TORCH_STREAMS):
+        rec_k, st_k, pnp_k = reconstruct("cuda", torch_stream(k))
+        if rec_k.view_ids != list(range(SFM_FRAMES)) \
+                or not st_k["ate"] <= 2 * JAX_SFM_ATE:
+            fail(f"sfm: torch stream {k}: registered {rec_k.view_ids}, ATE "
+                 f"{st_k['ate']} (limit {2 * JAX_SFM_ATE})")
+        streams.append(dict(stream=f"torch_{k}", ate=st_k["ate"],
+                            registered=st_k["registered"],
+                            points=st_k["points"], seconds=st_k["seconds"],
+                            pnp_kept_share=pnp_kept_share(pnp_k)))
     emit("sfm", frames=SFM_FRAMES, height=HEIGHT, width=WIDTH,
          threshold=SFM_THRESHOLD, features=[len(f["x"]) for f in seq_feats],
          launches=launches, detect_s=detect_s,
+         reconstruction_launches=sfm_launches,
          view_ids_equal=True, card=sfm_card, cpu=sfm_cpu,
+         card_torch_streams=streams,
          jax_ate_reference=JAX_SFM_ATE, ate_limit=2 * JAX_SFM_ATE,
          cpu_torch_threads=1,
          nvidia_smi=smi_line)
@@ -3715,7 +4094,8 @@ def eager_phases(dev, smi_line):
                 seq=(seq_feats, seq_K, seq_centers), timing=timing,
                 launches_by_path=launches_by_path,
                 spatial_kernel_ms=spatial_kernel_ms,
-                launches_def=launches_def, errs=errs)
+                launches_def=launches_def, launches_sfm=sfm_launches,
+                errs=errs)
 
 
 if __name__ == "__main__":

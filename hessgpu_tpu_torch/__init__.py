@@ -34,6 +34,7 @@ from .detector import HessianSift
 from .features import FeatureTable, to_numpy_trimmed
 from .matcher import SiftMatcher
 from .parallel.batch import detect_batch
+from .params import ScaleSpaceParams
 from .pyramid import (detect_and_describe, make_plan, run_pipeline,
                       run_pipeline_batched, run_pipeline_jit)
 
@@ -42,5 +43,5 @@ __all__ = [
     "detect_and_describe", "make_plan", "run_pipeline",
     "run_pipeline_batched", "run_pipeline_jit", "describe_keypoints",
     "describe_rectangles",
-    "HessianSift", "SiftMatcher",
+    "HessianSift", "SiftMatcher", "ScaleSpaceParams",
 ]

@@ -243,6 +243,7 @@ def reconstruct_sequence(
     keyframe_max_gap: int = 8,
     final_rounds: int = 1,
     ba_loss: str = "cauchy",
+    polish_prune_px: float = 0.0,
     device="cuda",
 ) -> Optional[Reconstruction]:
     """Incremental SfM over an ordered list of per-image feature dicts
@@ -288,6 +289,8 @@ def reconstruct_sequence(
 
     mesh: optional parallel.distributed mesh - every periodic and final BA
     ends with a distributed LM polish over it (run_global_ba).
+    polish_prune_px > 0 (opt-in; 0 is the JAX package's polish) prunes the
+    periodic BAs' observations at that many pixels before their polish.
 
     device: where the numeric calls run ("cuda" unless the CPU is asked
     for).
@@ -319,7 +322,8 @@ def reconstruct_sequence(
             merge_tracks=merge_tracks,
             keyframe_parallax_deg=keyframe_parallax_deg,
             keyframe_max_gap=keyframe_max_gap,
-            final_rounds=final_rounds, ba_loss=ba_loss, device=device)
+            final_rounds=final_rounds, ba_loss=ba_loss,
+            polish_prune_px=polish_prune_px, device=device)
 
     # ---- initialize from the first strong adjacent pair ------------------
     init_b = None
@@ -362,7 +366,8 @@ def reconstruct_sequence(
         merge_tracks=merge_tracks,
         keyframe_parallax_deg=keyframe_parallax_deg,
         keyframe_max_gap=keyframe_max_gap,
-        final_rounds=final_rounds, ba_loss=ba_loss, device=device)
+        final_rounds=final_rounds, ba_loss=ba_loss,
+        polish_prune_px=polish_prune_px, device=device)
 
 
 def _two_view(q1, q2, K, seed, device):
@@ -427,6 +432,7 @@ def _register_remaining(rec: Reconstruction, feature_sets, matches, K,
                         keyframe_max_gap=8,
                         final_rounds=1,
                         ba_loss="cauchy",
+                        polish_prune_px=0.0,
                         device="cuda") -> Reconstruction:
     """Register views [start, n_img) into rec (lookback PnP; skip, don't
     break), then loop closure, re-triangulation, and the final BA. Shared
@@ -646,6 +652,7 @@ def _register_remaining(rec: Reconstruction, feature_sets, matches, K,
         if rec.num_cameras % ba_every == 0:
             rec = run_global_ba(rec, iterations=ba_iterations,
                                 huber_delta=huber_delta, mesh=mesh,
+                                polish_prune_px=polish_prune_px,
                                 device=device)
             if verbose:
                 print(f"view {i}: cams={rec.num_cameras} "
@@ -796,7 +803,8 @@ def _close_loops(rec: Reconstruction, feature_sets, matches, min_matches,
 def run_global_ba(rec: Reconstruction, iterations: int = 10,
                   huber_delta: float = 0.0, loss: str = "cauchy",
                   prune_threshold: float = 0.0,
-                  mesh=None, device="cuda") -> Reconstruction:
+                  mesh=None, polish_prune_px: float = 0.0,
+                  device="cuda") -> Reconstruction:
     """Bundle-adjust the whole reconstruction. huber_delta > 0 enables the
     robust loss (Cauchy by default: SfM tracks carry occasional gross
     mismatches, and a redescending loss drives their influence to ~0);
@@ -806,7 +814,12 @@ def run_global_ba(rec: Reconstruction, iterations: int = 10,
     mesh: optional parallel.distributed mesh - after the robust solve (and
     pruning), the observations are sharded across the mesh and a final
     distributed LM polish runs (distributed_ba.bundle_adjust_sharded,
-    matrix-free CG with its sums reduced over the mesh).
+    matrix-free CG with its sums reduced over the mesh). The polish is a
+    plain least-squares solve over every observation, as the JAX
+    package's, so gross outliers the robust loss ignored can bend the
+    trajectory. polish_prune_px > 0 (opt-in, a departure from the JAX
+    package) prunes the observations at that many pixels before the polish
+    where the robust solve did not (prune_threshold 0: the periodic BAs).
 
     device: where BA runs ("cuda" unless the CPU is asked for)."""
     device = resolve_device(device)
@@ -836,6 +849,8 @@ def run_global_ba(rec: Reconstruction, iterations: int = 10,
                                    iterations=max(3, iterations // 2),
                                    huber_delta=huber_delta, loss=loss)
     if mesh is not None:
+        if prune_threshold <= 0 < polish_prune_px:
+            prob, _ = prune_outliers(out, prob, polish_prune_px)
         out, _ = bundle_adjust_sharded(out, prob, mesh,
                                        iterations=max(3, iterations // 2))
     R, t = _host(out.R), _host(out.t)

@@ -11,15 +11,17 @@ sfm/incremental.py feeds the cores the JAX package's own draws
 
 The two cores are the JAX package's jitted ransac_fundamental and
 ransac_pnp: on the card each replays one captured CUDA graph per
-(threshold, the shapes, the device). torch.linalg.svd reads its
-convergence flags back to the host, which no capture can hold, so a core's
-graph is a chain of graphs with its SVDs run eagerly between them (the
-cores are generators that yield each SVD: utils.graphs.Eager). A
-fundamental RANSAC's N follows the data (its draws depend on N, so it is
-not padded), so its key is captured at its second call and its first runs
-eagerly; PnP's correspondences are padded to powers of two by the caller
-and captured at the first call. On the CPU, and inside
-utils.graphs.disable_graphs(), the cores run eagerly.
+(threshold, the shapes, the device). Their SVDs go by the tensor's device
+(_null_vector, _svd3): on the card to the kernels of csrc/linalg.cu
+(ops/cuda/linalg.py: fixed-sweep Jacobi that reads nothing back to the
+host, so a core is one graph, eager route and replay alike); on the CPU to
+torch.linalg.svd, the LAPACK of the JAX package's CPU run - or, with
+PLAIN_JACOBI_ON_CPU set (a test seam), to the kernels' plain versions
+(ops/linalg.py). A fundamental RANSAC's N follows the data (its draws
+depend on N, so it is not padded), so its key is captured at its second
+call and its first runs eagerly; PnP's correspondences are padded to
+powers of two by the caller and captured at the first call. On the CPU,
+and inside utils.graphs.disable_graphs(), the cores run eagerly.
 ransac_fundamental_from_samples.clear_cache() and
 ransac_pnp_from_samples.clear_cache() free their graphs.
 """
@@ -31,7 +33,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..utils.graphs import Eager, GraphCache, graphs_enabled, run_eagerly
+from ..ops import linalg
+from ..ops.cuda import linalg as cuda_linalg
+from ..utils.graphs import GraphCache, graphs_enabled
 from ..utils.precision import full_f32_matmul
 
 _SQRT2 = math.sqrt(2.0)
@@ -42,6 +46,10 @@ _SQRT2 = math.sqrt(2.0)
 RANSAC_GRAPH_BYTES = 1 << 30
 _RANSAC_F_GRAPHS = GraphCache(RANSAC_GRAPH_BYTES, capture_at=2)
 _PNP_GRAPHS = GraphCache(RANSAC_GRAPH_BYTES)
+
+# the tests' seam: CPU tensors' SVDs through the card kernels' plain
+# versions (ops/linalg.py) instead of LAPACK
+PLAIN_JACOBI_ON_CPU = False
 
 
 class TwoViewResult(NamedTuple):
@@ -87,23 +95,31 @@ def _design(n1, n2):
                         torch.ones_like(x1)], -1)
 
 
-def _svd_vh(A):
-    """Vh of A's full SVD: a call the graphs leave out."""
-    return torch.linalg.svd(A, full_matrices=True).Vh
+def _null_vector(A):
+    """(..., n): the unit right singular vector of the smallest singular
+    value of each (M, n) matrix of A (..., M, n) - the last row of its full
+    SVD's Vh, up to sign."""
+    if A.is_cuda:
+        return cuda_linalg.null_vector(A)
+    if PLAIN_JACOBI_ON_CPU:
+        return linalg.null_vector_plain(A)
+    return torch.linalg.svd(A, full_matrices=True).Vh[..., -1, :]
 
 
-def _svd(A):
-    """(U, S, Vh) of A's full SVD: a call the graphs leave out."""
+def _svd3(A):
+    """(U, S, Vh) of each 3 x 3 matrix of A (..., 3, 3)."""
+    if A.is_cuda:
+        return cuda_linalg.svd3(A)
+    if PLAIN_JACOBI_ON_CPU:
+        return linalg.svd3_plain(A)
     return tuple(torch.linalg.svd(A))
 
 
 def _rank2_null_vector(A):
     """F (..., 3, 3) from the right null vector of A (..., M, 9), its
-    smallest singular value set to 0. A generator: it yields its SVDs
-    (utils.graphs.Eager)."""
-    vt = yield Eager(_svd_vh, (A,))
-    F = vt[..., -1, :].reshape(*A.shape[:-2], 3, 3)
-    u, s, vt2 = yield Eager(_svd, (F,))
+    smallest singular value set to 0."""
+    F = _null_vector(A).reshape(*A.shape[:-2], 3, 3)
+    u, s, vt2 = _svd3(F)
     keep = s.new_ones(3)
     keep[2:].fill_(0.0)      # a fill: assigning a float would copy it in
     s = s * keep
@@ -112,10 +128,10 @@ def _rank2_null_vector(A):
 
 def _eight_point(p1, p2):
     """Normalized 8-point F of (..., M, 2) correspondences, rank 2, scaled
-    so that F[2, 2] = 1. A generator, as _rank2_null_vector."""
+    so that F[2, 2] = 1."""
     n1, T1 = _normalize_points(p1)
     n2, T2 = _normalize_points(p2)
-    F = T2.mT @ (yield from _rank2_null_vector(_design(n1, n2))) @ T1
+    F = T2.mT @ _rank2_null_vector(_design(n1, n2)) @ T1
     f22 = F[..., 2, 2]
     f22 = f22 + torch.where(f22.abs() < 1e-12, 1e-12, 0.0)
     return F / f22[..., None, None]
@@ -126,7 +142,7 @@ def eight_point(p1, p2):
 
     p1, p2: (M, 2). Returns (3, 3) F with rank-2 enforcement."""
     with full_f32_matmul():
-        return run_eagerly(_eight_point(p1, p2))
+        return _eight_point(p1, p2)
 
 
 def sampson_error(F, p1, p2):
@@ -171,14 +187,12 @@ def ransac_fundamental_from_samples(idx, p1, p2, valid,
                 (float(threshold),),
                 lambda *a: _ransac_fundamental_core(*a, threshold),
                 idx, p1, p2, valid)
-        return run_eagerly(
-            _ransac_fundamental_core(idx, p1, p2, valid, threshold))
+        return _ransac_fundamental_core(idx, p1, p2, valid, threshold)
 
 
 def _ransac_fundamental_core(idx, p1, p2, valid, threshold):
-    """The body of ransac_fundamental_from_samples, run with TF32 off: a
-    generator that yields its SVDs."""
-    Fs = yield from _eight_point(p1[idx], p2[idx])          # (H, 3, 3)
+    """The body of ransac_fundamental_from_samples, run with TF32 off."""
+    Fs = _eight_point(p1[idx], p2[idx])                     # (H, 3, 3)
     errs = sampson_error(Fs, p1, p2)                        # (H, N)
     thr2 = threshold * threshold
     inl = (errs < thr2) & valid[None, :]
@@ -187,7 +201,7 @@ def _ransac_fundamental_core(idx, p1, p2, valid, threshold):
 
     # refit on the best hypothesis' inliers (weighted by mask)
     best_inl = _at(inl, best)
-    Ff = yield from _weighted_eight_point(p1, p2, best_inl.to(p1.dtype))
+    Ff = _weighted_eight_point(p1, p2, best_inl.to(p1.dtype))
     inl_f = (sampson_error(Ff, p1, p2) < thr2) & valid
     # keep the refit only if it didn't lose inliers
     better = inl_f.sum() >= _at(scores, best)
@@ -212,8 +226,7 @@ def ransac_fundamental(p1, p2, valid, threshold: float = 2.0,
 
 
 def _weighted_eight_point(p1, p2, wts):
-    """Least-squares F from weighted correspondences (soft inlier refit). A
-    generator, as _rank2_null_vector."""
+    """Least-squares F from weighted correspondences (soft inlier refit)."""
     wsum = wts.sum() + 1e-12
     m1 = (wts[:, None] * p1).sum(0) / wsum
     m2 = (wts[:, None] * p2).sum(0) / wsum
@@ -224,7 +237,7 @@ def _weighted_eight_point(p1, p2, wts):
     s2 = _SQRT2 / ((wts * torch.linalg.vector_norm(c2, dim=1)).sum() / wsum
                    + 1e-12)
     A = _design(c1 * s1, c2 * s2) * wts[:, None]
-    F = yield from _rank2_null_vector(A)
+    F = _rank2_null_vector(A)
     return _similarity(s2, m2).T @ F @ _similarity(s1, m1)
 
 
@@ -297,8 +310,9 @@ def recover_pose(E, p1, p2, K1, K2, valid=None):
 
 def _dlt_pose6(X, x_norm):
     """6-point DLT poses [R|t] from 3D-2D (normalized) correspondences,
-    batched: X (H, 6, 3), x_norm (H, 6, 2). Returns (R, t, ok), branch-free.
-    A generator that yields its SVDs (utils.graphs.Eager).
+    batched: X (H, 6, 3), x_norm (H, 6, 2). Returns (R, t, ok, scale),
+    branch-free; a negative scale (the null vector's sign) gives a wrong R,
+    as in the JAX package (ROADMAP, reference-side caveats).
     """
     Xh = torch.cat([X, X.new_ones(X.shape[:-1] + (1,))], -1)   # (H, 6, 4)
     u_, v_ = x_norm[..., 0, None], x_norm[..., 1, None]
@@ -306,16 +320,24 @@ def _dlt_pose6(X, x_norm):
     rows1 = torch.cat([zeros, -Xh, v_ * Xh], -1)
     rows2 = torch.cat([Xh, zeros, -u_ * Xh], -1)
     A = torch.cat([rows1, rows2], -2)                          # (H, 12, 12)
-    vt = yield Eager(_svd_vh, (A,))
-    P = vt[..., -1, :].reshape(*A.shape[:-2], 3, 4)
-    um, sm, vtm = yield Eager(_svd, (P[..., :3],))
+    P = _null_vector(A).reshape(*A.shape[:-2], 3, 4)
+    um, sm, vtm = _svd3(P[..., :3])
     d = torch.sign(torch.linalg.det(um @ vtm))
     diag = torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1)
     R = um @ torch.diag_embed(diag) @ vtm
     scale = sm.mean(-1) * d
     ok = scale.abs() > 1e-12
     t = P[..., 3] / torch.where(ok, scale, torch.ones_like(scale))[..., None]
-    return R, t, ok
+    return R, t, ok, scale
+
+
+def pnp_hypotheses(idx, pts3d, pts2d, K):
+    """Every hypothesis of ransac_pnp_from_samples: (R, t, ok, scale) of the
+    6-point DLTs over the correspondences idx (H, 6)."""
+    ones = pts2d.new_ones((pts2d.shape[0], 1))
+    norm2d = (torch.cat([pts2d, ones], 1)
+              @ torch.linalg.inv_ex(K)[0].T)[:, :2]
+    return _dlt_pose6(pts3d[idx], norm2d[idx])
 
 
 def ransac_pnp_from_samples(idx, pts3d, pts2d, valid, K,
@@ -329,17 +351,12 @@ def ransac_pnp_from_samples(idx, pts3d, pts2d, valid, K,
                 (float(threshold),),
                 lambda *a: _ransac_pnp_core(*a, threshold),
                 idx, pts3d, pts2d, valid, K)
-        return run_eagerly(
-            _ransac_pnp_core(idx, pts3d, pts2d, valid, K, threshold))
+        return _ransac_pnp_core(idx, pts3d, pts2d, valid, K, threshold)
 
 
 def _ransac_pnp_core(idx, pts3d, pts2d, valid, K, threshold):
-    """The body of ransac_pnp_from_samples, run with TF32 off: a generator
-    that yields its SVDs."""
-    ones = pts2d.new_ones((pts2d.shape[0], 1))
-    norm2d = (torch.cat([pts2d, ones], 1)
-              @ torch.linalg.inv_ex(K)[0].T)[:, :2]
-    Rs, ts, oks = yield from _dlt_pose6(pts3d[idx], norm2d[idx])
+    """The body of ransac_pnp_from_samples, run with TF32 off."""
+    Rs, ts, oks, _ = pnp_hypotheses(idx, pts3d, pts2d, K)
     xc = pts3d @ Rs.mT + ts[:, None, :]                       # (H, N, 3)
     z = torch.clamp(xc[..., 2], min=1e-9)
     pix = (xc[..., :2] / z[..., None]) @ K[:2, :2].T + K[:2, 2]

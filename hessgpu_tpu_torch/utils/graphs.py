@@ -33,15 +33,6 @@ was its warm-up): where the shapes follow the data and cannot be padded
 and a capture costs more than the call. The keys met once are remembered,
 the SEEN_KEYS most recent of them.
 
-A function may yield Eager(fn, args) where it needs a call that no capture
-can hold (torch.linalg.svd reads its convergence flags back to the host),
-and is sent fn(*args). Its graph is then a chain of graphs, captured into
-one pool, with those calls run eagerly between them: a call replays a
-segment, runs the eager call on that segment's output, copies its result
-into the next segment's static input, and so on. Called eagerly
-(run_eagerly), the same generator runs every Eager call where it stands,
-so both routes run one body.
-
 A graph keeps the buffers of its call in its pool for as long as it is
 cached, where an eager call returns them to the caching allocator: a cache
 is bounded by the bytes its graphs reserve, the least recently used graph
@@ -72,7 +63,6 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-import types
 from collections import OrderedDict
 from typing import Callable, Dict, FrozenSet, List, NamedTuple
 
@@ -132,44 +122,6 @@ def on_graph_route(cache: "GraphCache", tensor: torch.Tensor,
             and (mesh is None or mesh.in_process))
 
 
-class Eager(NamedTuple):
-    """A call that a graph leaves out: yielded by the function a GraphCache
-    captures, which is sent fn(*args) (tensors, or tuples of tensors)."""
-    fn: Callable
-    args: tuple
-
-
-def run_eagerly(out):
-    """The value of a graph's function called eagerly: `out` itself, or,
-    where the function is a generator, what it returns once every Eager call
-    it yields has run where it stands."""
-    if not isinstance(out, types.GeneratorType):
-        return out
-    try:
-        req = next(out)
-        while True:
-            req = out.send(req.fn(*req.args))
-    except StopIteration as stop:
-        return stop.value
-
-
-def _segments(fn: Callable, args):
-    """fn(*args) as a generator: fn's own, or one that yields nothing."""
-    out = fn(*args)
-    if isinstance(out, types.GeneratorType):
-        return (yield from out)
-    return out
-
-
-class _Segment(NamedTuple):
-    """One captured graph of a call, and the eager call after it (None after
-    the last): its result is copied into `results`, the next segment's
-    static input."""
-    graph: "torch.cuda.CUDAGraph"
-    call: "Eager"
-    results: List[torch.Tensor]
-
-
 class GraphStats(NamedTuple):
     """What one captured graph cost and holds."""
     key: tuple
@@ -185,9 +137,6 @@ class GraphStats(NamedTuple):
     replays: int
     capture_at: int = 1       # the call of its key that captured it
     eager_calls: int = 0      # the key's calls run eagerly before it
-    segments: int = 1         # graphs a call replays
-    eager_between: int = 0    # calls run eagerly between them (Eager)
-    between_copies: int = 0   # tensors copied from those into the graphs
 
 
 # one capture stream per device, as torch.cuda.graph keeps one
@@ -201,8 +150,8 @@ def _capture_stream(dev) -> "torch.cuda.Stream":
 
 
 class _Graph:
-    """One captured call of fn: its segments, static inputs and outputs, in
-    a private memory pool. Made under _capture_lock. The memory counts are
+    """One captured call of fn: its graph, static inputs and outputs, in a
+    private memory pool. Made under _capture_lock. The memory counts are
     the device's counters before and after, so other threads' allocations
     meanwhile show in them. warm_up: whether to call fn once eagerly on the
     capture stream first (first-use set-up: kernel attributes, library
@@ -219,44 +168,27 @@ class _Graph:
         args = pytree.tree_unflatten(self.static_in, spec)
         stream = _capture_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
-        pool = torch.cuda.graph_pool_handle()
-        self.segments: List[_Segment] = []
         with torch.cuda.stream(stream):
             if warm_up:
-                run_eagerly(fn(*args))
+                fn(*args)
             # what is reserved from here on is the pool's: a capture
             # allocates from it alone, never from the allocator's cache
             alloc0 = torch.cuda.memory_allocated(dev)
             reserved0 = torch.cuda.memory_reserved(dev)
             counts0 = build.launch_counts()
-            gen = _segments(fn, args)
-            sent = None
-            while True:
-                graph = torch.cuda.CUDAGraph()
-                graph.capture_begin(pool, capture_error_mode="thread_local")
-                try:
-                    call, out = gen.send(sent), None
-                except StopIteration as stop:
-                    call, out = None, stop.value
-                finally:
-                    graph.capture_end()
-                if call is None:
-                    self.segments.append(_Segment(graph, None, []))
-                    break
-                # the eager call reads this segment's outputs: they are made
-                # (a call on garbage could fail), outside any capture
-                graph.replay()
-                res, res_spec = pytree.tree_flatten(call.fn(*call.args))
-                results = [t.clone() for t in res]
-                self.segments.append(_Segment(graph, call, results))
-                sent = pytree.tree_unflatten(results, res_spec)
+            self.graph = torch.cuda.CUDAGraph()
+            self.graph.capture_begin(torch.cuda.graph_pool_handle(),
+                                     capture_error_mode="thread_local")
+            try:
+                out = fn(*args)
+            finally:
+                self.graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(stream)
         counts1 = build.launch_counts()
         self.static_out, self.out_spec = pytree.tree_flatten(out)
         if not all(isinstance(t, torch.Tensor) for t in self.static_out):
             raise TypeError("a graph's function must return tensors only")
         torch.cuda.synchronize(dev)
-        calls = [sg for sg in self.segments if sg.call is not None]
         self._stats = GraphStats(
             key=key, capture_s=time.perf_counter() - t0,
             kept_bytes=in_bytes + torch.cuda.memory_allocated(dev) - alloc0,
@@ -265,9 +197,7 @@ class _Graph:
             launches={k: counts1[k] - counts0[k] for k in counts1
                       if counts1[k] != counts0[k]},
             inputs=len(self.static_in), outputs=len(self.static_out),
-            replays=0, capture_at=capture_at, eager_calls=capture_at - 1,
-            segments=len(self.segments), eager_between=len(calls),
-            between_copies=sum(len(sg.results) for sg in calls))
+            replays=0, capture_at=capture_at, eager_calls=capture_at - 1)
         self.replays = 0
         self._lock = threading.Lock()
         self._done = torch.cuda.Event()     # the last call's clones taken
@@ -282,12 +212,7 @@ class _Graph:
             stream.wait_event(self._done)   # a call on another stream
             for s, t in zip(self.static_in, leaves):
                 s.copy_(t)
-            for sg in self.segments:
-                sg.graph.replay()
-                if sg.call is not None:
-                    res = pytree.tree_leaves(sg.call.fn(*sg.call.args))
-                    for s, t in zip(sg.results, res):
-                        s.copy_(t)
+            self.graph.replay()
             out = [t.clone() for t in self.static_out]
             self._done.record(stream)
             self.replays += 1
@@ -303,8 +228,7 @@ class GraphCache:
     shapes, dtypes and device of the tensors in args). args: tensors, or
     tuples / NamedTuples / dicts of tensors, on one CUDA device; a CPU
     tensor raises. key: hashable, standing for everything else fn depends
-    on. fn may be a generator that yields Eager calls (see the module's
-    docstring).
+    on.
 
     capture_at, an internal choice of the entry point by whether its shapes
     follow the data: the call of a key that captures it, 1 or 2. At 2 the
@@ -346,7 +270,7 @@ class GraphCache:
                 full, fn, leaves, spec, self.capture_at,
                 warm_up=self.capture_at == 1))
             if g is None:
-                return run_eagerly(fn(*args))
+                return fn(*args)
             return g(leaves)
 
     def _get(self, key, make: Callable):

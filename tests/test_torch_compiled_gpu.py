@@ -513,7 +513,8 @@ def test_ransac_fundamental_replay_equals_eager(card):
             lambda: ttv.ransac_fundamental_from_samples(*args)):
         assert _equal(tuple(got), tuple(want))
     st = ttv._RANSAC_F_GRAPHS.stats()[0]
-    assert (st.segments, st.eager_between) == (5, 4)
+    # one graph: both eight-point solves' kernels inside it
+    assert st.launches == {"null_vector": 2, "svd3": 2}
     other = _ransac_scene(card, 1)
     args2 = (other["fidx"], other["p1"], other["p2"], other["valid"])
     kept = [x.clone() for x in want]
@@ -534,7 +535,7 @@ def test_ransac_pnp_replay_equals_eager(card):
     for _ in range(3):
         assert _equal(tuple(ttv.ransac_pnp_from_samples(*args)), tuple(want))
     st = ttv._PNP_GRAPHS.stats()
-    assert len(st) == 1 and (st[0].segments, st[0].eager_between) == (3, 2)
+    assert len(st) == 1 and st[0].launches == {"null_vector": 1, "svd3": 1}
     other = _ransac_scene(card, 1)
     args2 = (other["pidx"], other["X"], other["p2"], other["valid"],
              other["K"])
@@ -578,4 +579,4 @@ def test_pose_graph_replay_equals_eager(card):
     for _ in range(2):
         assert _equal(tpg.optimize_pose_graph(R0, t0, graph), want)
     st = tpg._STEP_GRAPHS.stats()
-    assert len(st) == 1 and st[0].replays == 40 and st[0].segments == 1
+    assert len(st) == 1 and st[0].replays == 40

@@ -30,8 +30,10 @@ parity file:
 tests/test_torch_compiled.py plus one on indexing by a 0-d tensor (which
 reads the index back in C++). The spies see Python-level calls only: a
 library's own read-back inside an op is invisible to them - as
-torch.linalg.svd's convergence check, which is why the RANSAC cores yield
-their SVDs to run between the graphs (utils.graphs.Eager);
+torch.linalg.svd's convergence check, which is why on the card the RANSAC
+cores call the kernels of csrc/linalg.cu instead, here held on their plain
+versions' route (twoview.PLAIN_JACOBI_ON_CPU), and the LAPACK route is
+held to call torch.linalg.svd at the shapes the kernels take;
 (d) a re-entry list padded to the JAX package's bucket equals it unpadded,
 and so do the matcher's descriptor sets and locations padded to theirs.
 """
@@ -58,9 +60,9 @@ from hessgpu_tpu_torch.sfm import twoview as ttv
 from hessgpu_tpu_torch.sfm.incremental import sample_indices
 from hessgpu_tpu_torch.sfm.synthetic import texture_frame
 from hessgpu_tpu_torch.utils import graphs
-from hessgpu_tpu_torch.utils.graphs import (Eager, GraphCache, GraphStats,
-                                            disable_graphs, graphs_enabled,
-                                            run_eagerly)
+from hessgpu_tpu_torch.ops import linalg
+from hessgpu_tpu_torch.utils.graphs import (GraphCache, GraphStats,
+                                            disable_graphs, graphs_enabled)
 
 from _torch_threads import one_torch_thread  # noqa: F401
 from test_torch_compiled import HOST_CALLS, PKG, _watched
@@ -364,7 +366,7 @@ def test_ransac_fundamental_entry_is_its_body_and_jax(scene, ransac_runs):
             torch.ones(N, dtype=torch.bool))
     got = ttv.ransac_fundamental_from_samples(*args)
     with ttv.full_f32_matmul():
-        body = run_eagerly(ttv._ransac_fundamental_core(*args, 2.0))
+        body = ttv._ransac_fundamental_core(*args, 2.0)
     assert _equal(tuple(got), tuple(body))
     np.testing.assert_array_equal(got.inliers.numpy(),
                                   np.asarray(r["fres"].inliers))
@@ -378,7 +380,7 @@ def test_ransac_pnp_entry_is_its_body_and_jax(ransac_runs):
             t(K.astype(np.float32)))
     got = ttv.ransac_pnp_from_samples(*args)
     with ttv.full_f32_matmul():
-        body = run_eagerly(ttv._ransac_pnp_core(*args, 8.0))
+        body = ttv._ransac_pnp_core(*args, 8.0)
     assert _equal(tuple(got), tuple(body))
     np.testing.assert_array_equal(got.inliers.numpy(),
                                   np.asarray(r["pres"].inliers))
@@ -389,47 +391,63 @@ def test_ransac_pnp_entry_is_its_body_and_jax(ransac_runs):
                                rtol=0, atol=1e-3)
 
 
-def test_the_ransac_cores_yield_their_svds(scene, ransac_runs):
-    """Each core stops where its graph must end: before each SVD, with the
-    matrix that the SVD reads (the card runs the SVD between two graphs)."""
+@pytest.mark.parametrize("route", ["lapack", "jacobi"])
+def test_the_ransac_cores_svd_calls(scene, ransac_runs, monkeypatch, route):
+    """The decompositions each core makes, in order: the eight-point
+    systems, their 3 x 3 SVDs, the refit's system and its 3 x 3; the DLT
+    systems and their 3 x 3s. On the CPU's LAPACK route torch.linalg.svd
+    at those shapes; on the kernels' route (the plain Jacobi standing in
+    for csrc/linalg.cu) null_vector and svd3 at the same shapes and no
+    library decomposition."""
     r = ransac_runs
-    gen = ttv._ransac_fundamental_core(
-        r["fidx"], t(scene["p1"]), t(scene["p2"]),
-        torch.ones(N, dtype=torch.bool), 2.0)
-    shapes = []
+    calls = []
+
+    def spy(owner, name):
+        real = getattr(owner, name)
+
+        def recorded(A, *a, **kw):
+            calls.append((name, tuple(A.shape)))
+            return real(A, *a, **kw)
+        monkeypatch.setattr(owner, name, recorded)
+
+    for name in ("svd", "svdvals", "eigh", "eig", "qr"):
+        spy(torch.linalg, name)
+    spy(linalg, "null_vector_plain")
+    spy(linalg, "svd3_plain")
+    monkeypatch.setattr(ttv, "PLAIN_JACOBI_ON_CPU", route == "jacobi")
     with ttv.full_f32_matmul():
-        try:
-            call = next(gen)
-            while True:
-                shapes.append((call.fn.__name__, tuple(call.args[0].shape)))
-                call = gen.send(call.fn(*call.args))
-        except StopIteration:
-            pass
-    assert shapes == [("_svd_vh", (512, 8, 9)), ("_svd", (512, 3, 3)),
-                      ("_svd_vh", (N, 9)), ("_svd", (3, 3))]
-    gen = ttv._ransac_pnp_core(r["pidx"], t(r["X"]), t(r["uv"]),
-                               t(r["valid"]), t(K.astype(np.float32)), 8.0)
-    with ttv.full_f32_matmul():
-        first = next(gen)
-        second = gen.send(first.fn(*first.args))
-    assert (first.fn.__name__, tuple(first.args[0].shape)) == \
-        ("_svd_vh", (256, 12, 12))
-    assert (second.fn.__name__, tuple(second.args[0].shape)) == \
-        ("_svd", (256, 3, 3))
+        ttv._ransac_fundamental_core(
+            r["fidx"], t(scene["p1"]), t(scene["p2"]),
+            torch.ones(N, dtype=torch.bool), 2.0)
+        ttv._ransac_pnp_core(r["pidx"], t(r["X"]), t(r["uv"]),
+                             t(r["valid"]), t(K.astype(np.float32)), 8.0)
+    shapes = [(512, 8, 9), (512, 3, 3), (N, 9), (3, 3), (256, 12, 12),
+              (256, 3, 3)]
+    if route == "lapack":
+        assert calls == [("svd", sh) for sh in shapes]
+    else:
+        assert calls == [("null_vector_plain" if len(sh) > 1 and sh[-1] > 3
+                          else "svd3_plain", sh) for sh in shapes]
 
 
 def test_the_ransac_cores_read_nothing_from_the_host(scene, ransac_runs,
-                                                     host_reads):
+                                                     host_reads, monkeypatch):
+    """Both cores' bodies, on the LAPACK route and on the kernels' route
+    (the plain Jacobi in place of csrc/linalg.cu, whose wrappers launch on
+    the card's pointers alone): no upload, read-back or 0-d index."""
     r = ransac_runs
-    del host_reads[:]
-    with ttv.full_f32_matmul():
-        run_eagerly(ttv._ransac_fundamental_core(
-            r["fidx"], t(scene["p1"]), t(scene["p2"]),
-            torch.ones(N, dtype=torch.bool), 2.0))
-        run_eagerly(ttv._ransac_pnp_core(
-            r["pidx"], t(r["X"]), t(r["uv"]), t(r["valid"]),
-            t(K.astype(np.float32)), 8.0))
-    assert not _watched(host_reads, ("sfm/twoview.py",)), host_reads
+    watched = ("sfm/twoview.py", "ops/linalg.py", "ops/cuda/linalg.py")
+    for jacobi in (False, True):
+        monkeypatch.setattr(ttv, "PLAIN_JACOBI_ON_CPU", jacobi)
+        del host_reads[:]
+        with ttv.full_f32_matmul():
+            ttv._ransac_fundamental_core(
+                r["fidx"], t(scene["p1"]), t(scene["p2"]),
+                torch.ones(N, dtype=torch.bool), 2.0)
+            ttv._ransac_pnp_core(
+                r["pidx"], t(r["X"]), t(r["uv"]), t(r["valid"]),
+                t(K.astype(np.float32)), 8.0)
+        assert not _watched(host_reads, watched), (jacobi, host_reads)
     # the spies see the file: recover_pose, which stays eager, picks its
     # pose by a 0-d index
     Kt = t(K.astype(np.float32))
@@ -522,7 +540,7 @@ def test_a_first_call_cache_captures_at_once():
     assert cache.capture_at == 1
     g = cache._get("a", lambda: _FakeGraph("a", 1))
     assert g is not None and cache.eager_calls == 0 and cache.captures == 1
-    assert g.stats.eager_calls == 0 and g.stats.segments == 1
+    assert g.stats.eager_calls == 0 and g.stats.capture_at == 1
     with pytest.raises(ValueError, match="capture_at"):
         GraphCache(1, capture_at=3)
 
@@ -546,19 +564,22 @@ def test_a_dropped_key_starts_over_and_the_seen_keys_are_bounded(
     assert cache._get("d", make("d")) is None          # forgotten by clear
 
 
-def test_run_eagerly_runs_the_eager_calls_where_they_stand():
-    order = []
-
-    def body(x):
-        order.append("before")
-        y = yield Eager(lambda a: (order.append("svd") or a * 2, a + 1),
-                        (x,))
-        order.append("after")
-        return y[0] + y[1]
-
-    assert run_eagerly(body(torch.tensor(3.0))) == 10.0
-    assert order == ["before", "svd", "after"]
-    assert run_eagerly(7) == 7
+def test_the_ransac_cores_are_one_program_each(scene, ransac_runs,
+                                               monkeypatch):
+    """A core is a plain function: no generator, nothing yielded for an
+    eager call between graphs. Its kernels' route gives the LAPACK route's
+    result on these inliers."""
+    r = ransac_runs
+    args = (r["fidx"], t(scene["p1"]), t(scene["p2"]),
+            torch.ones(N, dtype=torch.bool), 2.0)
+    with ttv.full_f32_matmul():
+        lapack = ttv._ransac_fundamental_core(*args)
+        monkeypatch.setattr(ttv, "PLAIN_JACOBI_ON_CPU", True)
+        jacobi = ttv._ransac_fundamental_core(*args)
+    assert isinstance(lapack, ttv.TwoViewResult)
+    assert torch.equal(lapack.inliers, jacobi.inliers)
+    assert not hasattr(graphs, "Eager") and not hasattr(graphs,
+                                                        "run_eagerly")
 
 
 def test_disable_graphs_for_some_caches():

@@ -21,7 +21,9 @@ VOTE_TOL = 2e-5 of the keypoint's largest entry
 2e-6. Orientations are discrete; the plain peak picker applied to the
 kernel's own histograms must reproduce the kernel's thetas exactly, so a
 keypoint whose orientations differ between the two routes differs through
-its histogram alone, and that is within tolerance.
+its histogram alone, and that is within tolerance. The small-SVD kernels
+(csrc/linalg.cu) equal their plain versions (ops/linalg.py) bit for bit:
+the same Gram sums, rotations and sign rule in float64, -fmad=false.
 """
 
 import numpy as np
@@ -31,8 +33,10 @@ import torch
 from hessgpu_tpu_torch import SiftConfig, detect_batch, make_plan
 from hessgpu_tpu_torch import pyramid as tpyr
 from hessgpu_tpu_torch.ops import gaussian
+from hessgpu_tpu_torch.ops import linalg
 from hessgpu_tpu_torch.ops.cuda import (conv, detect, launch_counts, patch,
                                         reset_launch_counts)
+from hessgpu_tpu_torch.ops.cuda import linalg as cuda_linalg
 from hessgpu_tpu_torch.ops.descriptor import finalize_descriptors
 from hessgpu_tpu_torch.ops.orientation import peaks_from_votes
 from hessgpu_tpu_torch.params import gaussian_taps
@@ -425,7 +429,7 @@ def test_default_main_path_goes_through_the_kernels(card, detector):
     assert launch_counts() == {"blur": 1, "octave_chain": n_oct,
                                "downsample2": 0,
                                "detect_octave": n_oct, "orientation": 1,
-                               "descriptor": 1}
+                               "descriptor": 1, "null_vector": 0, "svd3": 0}
     want = detect_batch(imgs, cfg, plain=True)
     assert launch_counts()["descriptor"] == 1           # plain launched none
     assert int(got.count().min()) >= 10
@@ -450,7 +454,7 @@ def test_main_path_goes_through_the_kernels(card, detector):
     assert launch_counts() == {"blur": 1, "octave_chain": n_oct,
                                "downsample2": 0,
                                "detect_octave": n_oct, "orientation": 0,
-                               "descriptor": 0}
+                               "descriptor": 0, "null_vector": 0, "svd3": 0}
     want = detect_batch(imgs, cfg, plain=True)
     assert launch_counts()["detect_octave"] == n_oct     # plain launched none
     assert int(got.count().min()) >= 10
@@ -477,7 +481,7 @@ def test_direct_pyramid_kernel_route_equals_plain(card, shape, detector):
     assert launch_counts() == {
         "blur": 1 + blurred * plan.num_octaves, "octave_chain": 0,
         "downsample2": plan.num_octaves - 1, "detect_octave": 0,
-        "orientation": 0, "descriptor": 0}
+        "orientation": 0, "descriptor": 0, "null_vector": 0, "svd3": 0}
     want = tpyr._build_pyramid(imgs, plan, cfg, plain=True)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -507,7 +511,7 @@ def test_direct_main_path_goes_through_the_kernels(card, detector):
     assert launch_counts() == {"blur": 1 + levels * n_oct, "octave_chain": 0,
                                "downsample2": n_oct - 1,
                                "detect_octave": n_oct, "orientation": 0,
-                               "descriptor": 0}
+                               "descriptor": 0, "null_vector": 0, "svd3": 0}
     want = detect_batch(imgs, cfg, plain=True)
     assert int(got.count().min()) >= 10
     for f in got._fields:
@@ -629,3 +633,100 @@ def test_spatial_path_goes_through_the_kernels(card, n):
             assert torch.equal(getattr(got, f), getattr(one, f)), f
     assert float((got.desc - want.desc).abs().max()) <= 2e-6
     assert torch.equal(got.desc, one.desc)
+
+
+# ---- the small-SVD kernels of the RANSAC cores -------------------------------
+
+def _design_batch(b, m, seed):
+    """Hartley-normalised eight-point rows of b seeded m-point samples."""
+    from hessgpu_tpu_torch.sfm import twoview as ttv
+    rng = np.random.RandomState(seed)
+    p1 = torch.from_numpy(rng.uniform(0, 640, (b, m, 2)).astype(np.float32))
+    p2 = p1 + torch.from_numpy(rng.normal(0, 20, (b, m, 2)).astype(
+        np.float32))
+    n1, _ = ttv._normalize_points(p1)
+    n2, _ = ttv._normalize_points(p2)
+    return ttv._design(n1, n2)
+
+
+def _null_vector_inputs():
+    rng = np.random.RandomState(3)
+    degenerate = _design_batch(4, 8, 4)
+    degenerate[0, 5] = degenerate[0, 2]           # a repeated draw
+    degenerate[1] = 0.0
+    degenerate[2, 4:] = degenerate[2, :4]
+    return {"eight_point_512x8x9": _design_batch(512, 8, 1),
+            "refit_428x9": _design_batch(1, 428, 2)[0],
+            "refit_2048x9": _design_batch(1, 2048, 5),
+            "dlt_256x12x12": torch.from_numpy(
+                rng.randn(256, 12, 12).astype(np.float32)),
+            "batch_64x16x12": torch.from_numpy(
+                rng.randn(64, 16, 12).astype(np.float32)),
+            "degenerate_4x8x9": degenerate}
+
+
+@pytest.mark.parametrize("case", list(_null_vector_inputs()))
+def test_null_vector_kernel_equals_plain(card, case):
+    A = _null_vector_inputs()[case].to(card)
+    reset_launch_counts()
+    got = cuda_linalg.null_vector(A)
+    want = linalg.null_vector_plain(A)
+    assert launch_counts()["null_vector"] == 1     # the plain launched none
+    assert got.shape == want.shape and torch.equal(got, want)
+    assert not bool(got.isnan().any())
+
+
+def _svd3_inputs():
+    rng = np.random.RandomState(6)
+    degenerate = torch.zeros(4, 3, 3)
+    degenerate[1] = torch.tensor([[1.0, 2, 3], [4, 5, 9], [7, 8, 15]])
+    degenerate[2] = torch.tensor([[1.0, 2, 3], [2, 4, 6], [3, 6, 9]])
+    degenerate[3] = torch.eye(3)
+    return {"512x3x3": torch.from_numpy(rng.randn(512, 3, 3).astype(
+        np.float32)), "3x3": torch.from_numpy(rng.randn(3, 3).astype(
+            np.float32)), "256x3x3": torch.from_numpy(rng.randn(
+                256, 3, 3).astype(np.float32)), "degenerate": degenerate}
+
+
+@pytest.mark.parametrize("case", list(_svd3_inputs()))
+def test_svd3_kernel_equals_plain(card, case):
+    A = _svd3_inputs()[case].to(card)
+    reset_launch_counts()
+    got = cuda_linalg.svd3(A)
+    want = linalg.svd3_plain(A)
+    assert launch_counts()["svd3"] == 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+        assert not bool(g.isnan().any())
+
+
+def test_ransac_cores_launch_their_kernels(card):
+    """On a CUDA tensor the cores go through the kernels, eagerly: two
+    null_vector and two svd3 launches a fundamental RANSAC, one each a
+    PnP."""
+    from hessgpu_tpu_torch.sfm import twoview as ttv
+    rng = np.random.RandomState(8)
+    n = 300
+    X = rng.uniform(-1, 1, (n, 3)) * [3, 2, 1] + [0, 0, 6]
+    K = np.array([[600.0, 0, 320], [0, 600.0, 240], [0, 0, 1]])
+    a = 0.1
+    R2 = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                   [-np.sin(a), 0, np.cos(a)]])
+    Xc = X @ R2.T + [-0.5, 0.0, 0.0]
+    uv = X[:, :2] / X[:, 2:] * 600.0 + K[:2, 2]
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32,  # noqa: E731
+                                    device=card)
+    p1 = f32(uv + rng.normal(0, 0.3, uv.shape))
+    p2 = f32(Xc[:, :2] / Xc[:, 2:] * 600.0 + K[:2, 2]
+             + rng.normal(0, 0.3, uv.shape))
+    valid = torch.ones(n, dtype=torch.bool, device=card)
+    fidx = torch.as_tensor(rng.randint(0, n, (512, 8)), device=card)
+    pidx = torch.as_tensor(rng.randint(0, n, (256, 6)), device=card)
+    with disable_graphs():
+        reset_launch_counts()
+        fres = ttv.ransac_fundamental_from_samples(fidx, p1, p2, valid)
+        pres = ttv.ransac_pnp_from_samples(pidx, f32(X), f32(uv), valid,
+                                           f32(K))
+        counts = launch_counts()
+    assert (counts["null_vector"], counts["svd3"]) == (3, 3)
+    assert int(fres.num_inliers) >= 250 and int(pres.num_inliers) >= 250

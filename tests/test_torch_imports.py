@@ -2,6 +2,7 @@
 
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -15,9 +16,14 @@ from hessgpu_tpu_torch.sfm.synthetic import texture_frame
 from _torch_threads import one_torch_thread  # noqa: F401
 
 SLICE = dict(compute_descriptors=False, fixed_orientation=True)
+REPO = Path(__file__).resolve().parents[1]
+EXAMPLES = str(REPO / "examples")
 
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
+    """The package, the example (examples/simple_sift_torch.py) and
+    chip_smoke.py (which imports the port inside its phases; at import it
+    takes the standard library only)."""
     code = (
         "import sys\n"
         "import hessgpu_tpu_torch\n"
@@ -25,6 +31,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import hessgpu_tpu_torch.ops.cuda.conv\n"
         "import hessgpu_tpu_torch.ops.cuda.detect\n"
         "import hessgpu_tpu_torch.ops.cuda.patch\n"
+        "import hessgpu_tpu_torch.ops.cuda.linalg\n"
+        "import hessgpu_tpu_torch.ops.linalg\n"
         "import hessgpu_tpu_torch.ops.gather\n"
         "import hessgpu_tpu_torch.ops.orientation\n"
         "import hessgpu_tpu_torch.ops.descriptor\n"
@@ -50,6 +58,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import hessgpu_tpu_torch.parallel.spatial\n"
         "import hessgpu_tpu_torch.sfm.distributed_ba\n"
         "import hessgpu_tpu_torch.entry\n"
+        f"sys.path.insert(0, {EXAMPLES!r})\n"
+        "import simple_sift_torch\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'hessgpu_tpu'"
         " or m.startswith('hessgpu_tpu.')]\n"
@@ -58,9 +69,25 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "assert 'PIL' not in sys.modules\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_the_port_exports_the_jax_packages_public_names():
+    """Every name of hessgpu_tpu.__all__ (read from its source, not
+    imported) is public in the port, ScaleSpaceParams among them."""
+    import ast
+    src = REPO / "hessgpu_tpu" / "__init__.py"
+    names = next(ast.literal_eval(node.value)
+                 for node in ast.parse(src.read_text()).body
+                 if isinstance(node, ast.Assign)
+                 and [t.id for t in node.targets] == ["__all__"])
+    assert "ScaleSpaceParams" in names
+    for name in names:
+        assert name in ht.__all__ and hasattr(ht, name), name
+    from hessgpu_tpu_torch.params import ScaleSpaceParams
+    assert ht.ScaleSpaceParams is ScaleSpaceParams
 
 
 def test_import_builds_and_loads_nothing():
@@ -140,12 +167,13 @@ def test_cpu_runs_count_no_launches():
     ht.describe_keypoints(img[0], np.array([[20.0, 20.0, 2.0]]), device="cpu")
     assert launch_counts() == {"blur": 0, "octave_chain": 0,
                                "downsample2": 0, "detect_octave": 0,
-                               "orientation": 0, "descriptor": 0}
+                               "orientation": 0, "descriptor": 0,
+                               "null_vector": 0, "svd3": 0}
 
 
 def test_sources_are_in_the_package():
     names = sorted(p.name for p in build.sources())
-    assert names == ["conv.cu", "detect.cu", "patch.cu"]
+    assert names == ["conv.cu", "detect.cu", "linalg.cu", "patch.cu"]
     assert "-fmad=false" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert not any("fast_math" in f for f in build.NVCC_FLAGS)

@@ -13,6 +13,14 @@ and t 1e-3 absolute (a 6-point DLT through a 12 x 12 SVD in float32 carries
 the libraries' last-bit differences to 1e-4); recover_pose on the same E:
 R and t 1e-4 absolute after cheirality, the front mask equal; triangulate
 1e-4 relative to each point's norm; type_aware_match_mask equal.
+
+The cores also on the card kernels' route (twoview.PLAIN_JACOBI_ON_CPU: the
+plain Jacobi of ops/linalg.py, which the kernels of csrc/linalg.cu equal
+bit for bit on the card): inlier masks equal, F equal up to sign within
+1e-3 relative, PnP R and t within 1e-3; each PnP hypothesis against the
+JAX package's _dlt_pose6 where its null vector is determined (gap
+sigma_11 / sigma_1 >= 1e-3): R, t and ok within 1e-3 where the two null
+vectors agree in sign, t within 1e-3 where the sign rule flips LAPACK's.
 """
 
 import numpy as np
@@ -233,3 +241,98 @@ def test_type_aware_match_mask_matches_jax():
     got = ttv.type_aware_match_mask(torch.from_numpy(a),
                                     torch.from_numpy(b)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the cores on the card kernels' route: the plain Jacobi of ops/linalg.py
+# (csrc/linalg.cu's kernels equal it bit for bit on the card)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def jacobi_route(monkeypatch):
+    monkeypatch.setattr(ttv, "PLAIN_JACOBI_ON_CPU", True)
+
+
+def test_ransac_fundamental_core_on_the_jacobi_route_matches_jax(
+        scene, jax_runs, jacobi_route):
+    """Inlier masks and counts equal; F equal up to sign (the refit's F
+    carries its null vector's sign) within 1e-3 relative."""
+    t = torch.from_numpy
+    want = jax_runs["fres"]
+    got = ttv.ransac_fundamental_from_samples(
+        t(jax_runs["fidx"].astype(np.int64)), t(scene["p1"]), t(scene["p2"]),
+        torch.ones(N, dtype=torch.bool))
+    np.testing.assert_array_equal(got.inliers.numpy(),
+                                  np.asarray(want.inliers))
+    assert int(got.num_inliers) == int(want.num_inliers) == N - N_OUT
+    assert _close(_canon(got.F.numpy()), _canon(want.F), rel=1e-3)
+
+
+def test_ransac_pnp_core_on_the_jacobi_route_matches_jax(scene, jax_runs,
+                                                         jacobi_route):
+    """The sign rule keeps the JAX package's winner on this scene: inliers
+    equal, R and t within 1e-3."""
+    t = torch.from_numpy
+    want = jax_runs["pres"]
+    got = ttv.ransac_pnp_from_samples(
+        t(jax_runs["pidx"].astype(np.int64)), t(jax_runs["pnp_X"]),
+        t(jax_runs["pnp_uv"]), t(jax_runs["pnp_valid"]),
+        t(K.astype(np.float32)))
+    np.testing.assert_array_equal(got.inliers.numpy(),
+                                  np.asarray(want.inliers))
+    assert int(got.num_inliers) == int(want.num_inliers)
+    np.testing.assert_allclose(got.R.numpy(), np.asarray(want.R), rtol=0,
+                               atol=1e-3)
+    np.testing.assert_allclose(got.t.numpy(), np.asarray(want.t), rtol=0,
+                               atol=1e-3)
+
+
+# of the scene's 256 PnP hypotheses: those whose 12 x 12 system has a gap
+# sigma_11 / sigma_1 >= 1e-3 (a null vector to compare; the others repeat a
+# draw), of those the ones whose null vector the sign rule flips against
+# LAPACK's, and the hypotheses kept (ok, positive scale) by the sign rule and
+# by LAPACK (through the port's CPU route)
+PNP_DETERMINED, PNP_SIGN_FLIPS = 199, 90
+PNP_KEPT_JACOBI, PNP_KEPT_LAPACK = 190, 135
+
+
+def test_pnp_hypotheses_on_the_jacobi_route_match_jax(scene, jax_runs,
+                                                      monkeypatch):
+    """Per hypothesis, against the JAX package's _dlt_pose6 (vmapped, not
+    jitted) on the same inputs, where the null vector is determined (the
+    gap above): where the two null vectors agree in sign, (R, t, ok) within
+    1e-3; where the sign rule flips LAPACK's vector, t within 1e-3 and R
+    apart (the reference caveat: a negative scale gives a wrong
+    rotation)."""
+    t = torch.from_numpy
+    pidx = jax_runs["pidx"]
+    Xs = jax_runs["pnp_X"][pidx]
+    xn = ((jax_runs["pnp_uv"] - K[:2, 2]) / K[0, 0]).astype(np.float32)[pidx]
+    Rj, tj, okj = (np.asarray(x) for x in jax.vmap(jtv._dlt_pose6)(
+        jnp.asarray(Xs), jnp.asarray(xn)))
+    _, _, ok_l, scale_l = ttv._dlt_pose6(t(Xs), t(xn))      # LAPACK
+    monkeypatch.setattr(ttv, "PLAIN_JACOBI_ON_CPU", True)
+    R, tt, ok, scale = (x.numpy() for x in ttv._dlt_pose6(t(Xs), t(xn)))
+    Xh = np.concatenate([Xs, np.ones(Xs.shape[:-1] + (1,), np.float32)], -1)
+    z = np.zeros_like(Xh)
+    A = np.concatenate([
+        np.concatenate([z, -Xh, xn[..., 1, None] * Xh], -1),
+        np.concatenate([Xh, z, -xn[..., 0, None] * Xh], -1)], -2)
+    v = ttv.linalg.null_vector_plain(t(A)).numpy().astype(np.float64)
+    vj = np.asarray(jnp.linalg.svd(jnp.asarray(A), full_matrices=True)[2]
+                    )[:, -1].astype(np.float64)
+    sv = np.linalg.svd(A.astype(np.float64), compute_uv=False)
+    determined = sv[:, -2] / sv[:, 0] >= 1e-3
+    dot = (v * vj).sum(-1)
+    assert (np.abs(dot[determined]) >= 1 - 1e-5).all()
+    same, flipped = determined & (dot > 0), determined & (dot < 0)
+    np.testing.assert_array_equal(ok[same], okj[same])
+    np.testing.assert_allclose(R[same], Rj[same], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(tt[same], tj[same], rtol=0, atol=1e-3)
+    both = flipped & ok & okj
+    np.testing.assert_allclose(tt[both], tj[both], rtol=0, atol=1e-3)
+    assert (np.abs(R[both] - Rj[both]).max(axis=(1, 2)) > 1e-2).all()
+    assert (int(determined.sum()), int(flipped.sum())) == \
+        (PNP_DETERMINED, PNP_SIGN_FLIPS)
+    assert int((ok & (scale > 0)).sum()) == PNP_KEPT_JACOBI
+    assert int((ok_l & (scale_l > 0)).sum()) == PNP_KEPT_LAPACK
