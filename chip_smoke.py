@@ -30,9 +30,11 @@ wrapper counts its launches. Phases, one JSON line each:
              null_vector at (512, 8, 9), (428, 9), (2048, 9), (256, 12, 12)
              and on a degenerate batch, svd3 at (512, 3, 3), (3, 3),
              (256, 3, 3) and on zero, rank-1 and rank-2 matrices, each
-             bit-equal to its plain version (ops/linalg.py), the null
-             vectors against the card's float64 SVD, ms beside the plain
-             version's, torch.linalg.svd's (with its own sync) and the bound
+             bit-equal to its plain version (ops/linalg.py), the sweeps
+             each matrix ran too (min / max / mean per shape), the null
+             vectors against the card's float64 SVD, ms and us a round
+             beside the plain version's, torch.linalg.svd's (with its own
+             sync) and the bound for the sweeps these inputs ran
   main_path  detect_batch on 16 seeded 640x480 textures, through the
              kernels (launch counts read), against the same batch through
              the plain versions on the card, frame 0 against its pinned
@@ -304,7 +306,8 @@ DETAIL = ("fused_into", "octave_ms_without_decimation",
           "spatial_n4_device_ms", "launches_per_default_replay",
           "ms_by_shape", "wall_ms_by_shape", "plain_ms_by_shape",
           "library_ms_by_shape", "bound_ms_by_shape",
-          "min_cos_vs_float64_svd")
+          "min_cos_vs_float64_svd", "sweeps_by_shape",
+          "us_per_round_by_shape")
 # ba phase: bench_ba.py's problem (64 cameras, 4096 points, every camera
 # sees every 8th point: 32768 observations), built here in NumPy
 BA_CAMS, BA_PTS, BA_SEE_EVERY = 64, 4096, 8
@@ -2067,6 +2070,35 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def device_timer(dev):
+    """time_ms(fn, reps=REPS): the median device time of fn() by CUDA
+    events, 3 warm-up calls, then reps timed ones. Before each, a 512 MB
+    write evicts the 50 MB L2 and, with a sleep of BUSY_CYCLES, keeps the
+    card busy while the host enqueues the launch, so a short kernel's time
+    is its own and not the host's time to launch it."""
+    import torch
+
+    flush_buf = torch.empty(512 * 1024 * 1024, dtype=torch.int8, device=dev)
+
+    def time_ms(fn, reps=REPS):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(reps):
+            flush_buf.zero_()
+            torch.cuda._sleep(BUSY_CYCLES)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    return time_ms
+
+
 def ransac_systems(seed):
     """The RANSAC cores' systems on a seeded two-view scene (300 points at
     640x480, 0.3 px noise): the 512 eight-point systems (512, 8, 9), the
@@ -2118,28 +2150,47 @@ def ransac_systems(seed):
             "degenerate_4x8x9": degenerate}
 
 
+def svd3_systems(seed):
+    """svd3's inputs: seeded random 3 x 3s at the RANSAC cores' shapes
+    (512, 3, 3), (3, 3) and (256, 3, 3), and a degenerate batch: the zero
+    matrix, rank 2, rank 1, the identity, diag(1, 1, 0)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    degenerate = torch.zeros(5, 3, 3)
+    degenerate[1] = torch.tensor([[1.0, 2, 3], [4, 5, 9], [7, 8, 15]])
+    degenerate[2] = torch.tensor([[1.0, 2, 3], [2, 4, 6], [3, 6, 9]])
+    degenerate[3] = torch.eye(3)
+    degenerate[4] = torch.tensor([[1.0, 0, 0], [0, 1, 0], [0, 0, 0]])
+    return {"512x3x3": torch.from_numpy(rng.randn(512, 3, 3)).float(),
+            "3x3": torch.from_numpy(rng.randn(3, 3)).float(),
+            "256x3x3": torch.from_numpy(rng.randn(256, 3, 3)).float(),
+            "degenerate_5x3x3": degenerate}
+
+
 def linalg_kernels(dev, time_ms, must_equal, checked):
     """null_vector and svd3 (csrc/linalg.cu) against their plain versions
     (ops/linalg.py) on the card at the RANSAC cores' shapes and on a
-    degenerate batch, bit for bit (the same sums, rotations and sign rule);
-    the null vectors against the card's float64 SVD where the gap
-    sigma_{n-1} / sigma_1 >= 1e-3. Times: the kernel by CUDA events
-    (time_ms), the plain version, and torch.linalg.svd at the same shape
-    (library_ms: the host clock around the call and its own sync, median of
-    REPS; the kernel's wall_ms beside it the same way). Bound: the bytes
-    read and written over HBM_BYTES_PER_S against the float64 operations
-    the function needs over F64_FLOPS_PER_S: the Gram matrix of the n real
-    columns, then n (n - 1) / 2 symmetric rotations a sweep (the padded
-    index's rotations, which the kernel skips, not counted) for the sweeps
-    after which the results stop changing (ops/linalg.py: 8 for null_vector,
-    4 for svd3; the kernels run NULL_VECTOR_SWEEPS / SVD3_SWEEPS)."""
-    import numpy as np
+    degenerate batch, bit for bit (the same sums, rotations, convergence
+    test and sign rule), the sweeps each matrix ran too (min / max / mean
+    per shape in the kernels line); the null vectors against the card's
+    float64 SVD where the gap sigma_{n-1} / sigma_1 >= 1e-3. Times: the
+    kernel by CUDA events (time_ms), the plain version, and torch.linalg.svd
+    at the same shape (library_ms: the host clock around the call and its
+    own sync, median of REPS; the kernel's wall_ms beside it the same way);
+    us_per_round, the kernel's time over its slowest matrix's rounds (a
+    launch lasts as long as that matrix). Bound: the bytes read and written
+    over HBM_BYTES_PER_S against the float64 operations these inputs need
+    over F64_FLOPS_PER_S, for what each matrix ran: the Gram matrix of the
+    n real columns and its trace, the convergence test of each of the
+    n (n - 1) / 2 pairs in every sweep it ran, and the rotations it applied
+    (the plain version's count: a pair the test skipped, or the padded
+    index's, computes none; svd3 likewise over its 3 column pairs)."""
     import torch
 
     from hessgpu_tpu_torch.ops import linalg
     from hessgpu_tpu_torch.ops.cuda import linalg as cuda_linalg
-
-    null_vector_sweeps, svd3_sweeps = 8, 4
 
     def wall(fn):
         for _ in range(3):
@@ -2158,29 +2209,56 @@ def linalg_kernels(dev, time_ms, must_equal, checked):
         tf = flops / F64_FLOPS_PER_S * 1e3
         return max(tb, tf), ("bytes" if tb >= tf else "operations")
 
-    def null_vector_bound(B, M, n):
-        # a rotation: tau, t, c, s and the two diagonal entries (17); rows
-        # p and q of G once, by symmetry, and columns p and q of V (6 n each)
-        rotation = 12 * n + 17
-        flops = B * (M * n * (n + 1) + null_vector_sweeps
-                     * n * (n - 1) // 2 * rotation)
+    def checked_sweeps(kernel, name, A, fn, plain):
+        """Runs the kernel with its sweeps output against the plain version
+        (bit for bit, the sweeps too); returns its result, its sweeps and
+        the rotations the plain version applied."""
+        sweeps = torch.zeros(A.shape[:-2], dtype=torch.int32, device=dev)
+        got = fn(A, sweeps=sweeps)
+        *want, counts = plain(A, return_counts=True)
+        got_parts = got if isinstance(got, tuple) else (got,)
+        for part, g, w in zip("USV" if len(want) == 3 else "v", got_parts,
+                              want):
+            must_equal(kernel, f"{name} {part}", g, w)
+        must_equal(kernel, f"{name} sweeps", sweeps, counts.sweeps)
+        checked[kernel] += 1
+        return got, sweeps, counts.rotations
+
+    def sweep_stats(sweeps, rotations):
+        s = sweeps.double()
+        return {"min": int(s.min()), "max": int(s.max()),
+                "mean": float(s.mean()), "rotations": int(rotations.sum())}
+
+    def null_vector_bound(M, n, sweeps, rotations):
+        # a test: two products, a product by tol^2, an abs and a compare
+        # (5); a rotation: d, e, r, q, w, c, s, t and the two diagonal
+        # entries (17), rows p and q of G once, by symmetry, and columns p
+        # and q of V (6 n each)
+        pairs = n * (n - 1) // 2
+        flops = float((M * n * (n + 1) + n + sweeps.double() * pairs * 5
+                       + rotations.double() * (12 * n + 17)).sum())
+        B = sweeps.numel()
         return bound(4 * B * (M * n + n), flops)
 
-    def svd3_bound(B):
-        # a rotation: three dot products (15), zeta, t, c, s (13), two
-        # columns of W and of V (36); then the three norms and U (27)
-        flops = B * (svd3_sweeps * 3 * 64 + 27)
-        return bound(4 * B * (9 + 9 + 3 + 9), flops)
+    def svd3_bound(sweeps, rotations):
+        # a test: three dot products (15) and the squared compare (4); a
+        # rotation: d, e, r, q, w, c, s (13), two columns of W and of V
+        # (36); then the three norms and U (27)
+        flops = float((sweeps.double() * 3 * 19 + rotations.double() * 49
+                       + 27).sum())
+        return bound(4 * sweeps.numel() * (9 + 9 + 3 + 9), flops)
 
     systems = ransac_systems(11)
     by_shape, cos_min = {}, {}
     for name, A in systems.items():
         A = A.to(dev)
-        got = cuda_linalg.null_vector(A)
-        must_equal("null_vector", name, got, linalg.null_vector_plain(A))
-        checked["null_vector"] += 1
+        got, sweeps, rotations = checked_sweeps(
+            "null_vector", name, A, cuda_linalg.null_vector,
+            linalg.null_vector_plain)
         if bool(got.isnan().any()):
             fail(f"null_vector: NaN at {name}")
+        if int(sweeps.max()) > linalg.NULL_VECTOR_SWEEPS:
+            fail(f"null_vector: {name} ran {int(sweeps.max())} sweeps")
         ref = torch.linalg.svd(A.double(), full_matrices=True)
         sv = ref.S
         gap = (sv[..., -2] if A.shape[-2] >= A.shape[-1] else sv[..., -1]) \
@@ -2190,16 +2268,20 @@ def linalg_kernels(dev, time_ms, must_equal, checked):
         cos_min[name] = float(cos[det].min()) if bool(det.any()) else None
         if bool(det.any()) and cos_min[name] < 1 - 1e-5:
             fail(f"null_vector: {name}: |<v, v_svd>| {cos_min[name]}")
-        if name.startswith("degenerate"):
-            continue
-        B = A[..., 0, 0].numel()
         M, n = A.shape[-2:]
+        stats = sweep_stats(sweeps, rotations)
+        if name.startswith("degenerate"):
+            by_shape[name] = dict(sweeps=stats)
+            continue
+        ms = time_ms(lambda: cuda_linalg.null_vector(A))
         by_shape[name] = dict(
-            ms=time_ms(lambda: cuda_linalg.null_vector(A)),
+            ms=ms, sweeps=stats,
+            us_per_round=ms * 1e3 / max(1, stats["max"] * (n + (n & 1) - 1)),
             wall_ms=wall(lambda: cuda_linalg.null_vector(A)),
             plain_ms=time_ms(lambda: linalg.null_vector_plain(A), reps=3),
             library_ms=wall(lambda: torch.linalg.svd(A, full_matrices=True)),
-            bound=null_vector_bound(B, M, n))
+            bound=null_vector_bound(M, n, sweeps, rotations))
+    timed = {k: v for k, v in by_shape.items() if "ms" in v}
     timing = {}
     # a fundamental RANSAC launches the eight-point and the refit shapes, a
     # PnP the DLT shape
@@ -2207,32 +2289,25 @@ def linalg_kernels(dev, time_ms, must_equal, checked):
     timing["null_vector"] = dict(
         shape=[512, 8, 9], **{k: by_shape["512x8x9"][k] for k in
                               ("ms", "plain_ms", "library_ms", "bound")},
-        ms_by_shape={k: v["ms"] for k, v in by_shape.items()},
-        wall_ms_by_shape={k: v["wall_ms"] for k, v in by_shape.items()},
-        plain_ms_by_shape={k: v["plain_ms"] for k, v in by_shape.items()},
-        library_ms_by_shape={k: v["library_ms"] for k, v in by_shape.items()},
-        bound_ms_by_shape={k: v["bound"][0] for k, v in by_shape.items()},
+        ms_by_shape={k: v["ms"] for k, v in timed.items()},
+        wall_ms_by_shape={k: v["wall_ms"] for k, v in timed.items()},
+        plain_ms_by_shape={k: v["plain_ms"] for k, v in timed.items()},
+        library_ms_by_shape={k: v["library_ms"] for k, v in timed.items()},
+        bound_ms_by_shape={k: v["bound"][0] for k, v in timed.items()},
+        sweeps_by_shape={k: v["sweeps"] for k, v in by_shape.items()},
+        us_per_round_by_shape={k: v["us_per_round"]
+                               for k, v in timed.items()},
         path_ms=sum(by_shape[k]["ms"] for k in path),
         path_bound_ms=sum(by_shape[k]["bound"][0] for k in path),
         min_cos_vs_float64_svd=cos_min)
 
-    rng = np.random.RandomState(12)
-    degenerate = torch.zeros(5, 3, 3)
-    degenerate[1] = torch.tensor([[1.0, 2, 3], [4, 5, 9], [7, 8, 15]])
-    degenerate[2] = torch.tensor([[1.0, 2, 3], [2, 4, 6], [3, 6, 9]])
-    degenerate[3] = torch.eye(3)
-    degenerate[4] = torch.tensor([[1.0, 0, 0], [0, 1, 0], [0, 0, 0]])
-    mats = {"512x3x3": torch.from_numpy(rng.randn(512, 3, 3)).float(),
-            "3x3": torch.from_numpy(rng.randn(3, 3)).float(),
-            "256x3x3": torch.from_numpy(rng.randn(256, 3, 3)).float(),
-            "degenerate_5x3x3": degenerate}
     s_by = {}
-    for name, A in mats.items():
+    for name, A in svd3_systems(12).items():
         A = A.to(dev)
-        got = cuda_linalg.svd3(A)
-        for part, g, w in zip("USV", got, linalg.svd3_plain(A)):
-            must_equal("svd3", f"{name} {part}", g, w)
-        checked["svd3"] += 1
+        got, sweeps, rotations = checked_sweeps(
+            "svd3", name, A, cuda_linalg.svd3, linalg.svd3_plain)
+        if int(sweeps.max()) > linalg.SVD3_SWEEPS:
+            fail(f"svd3: {name} ran {int(sweeps.max())} sweeps")
         U, S, Vh = (x.double() for x in got)
         err = float(((U * S[..., None, :]) @ Vh - A.double()).abs().max())
         orth = float((U.mT @ U - torch.eye(3, device=dev,
@@ -2240,24 +2315,31 @@ def linalg_kernels(dev, time_ms, must_equal, checked):
         if any(bool(x.isnan().any()) for x in got) or err > 1e-5 \
                 or orth > 1e-6:
             fail(f"svd3: {name}: rebuilt to {err}, U orthogonal to {orth}")
+        stats = sweep_stats(sweeps, rotations)
         if name.startswith("degenerate"):
+            s_by[name] = dict(sweeps=stats)
             continue
-        B = A[..., 0, 0].numel()
+        ms = time_ms(lambda: cuda_linalg.svd3(A))
         s_by[name] = dict(
-            ms=time_ms(lambda: cuda_linalg.svd3(A)),
+            ms=ms, sweeps=stats,
+            us_per_round=ms * 1e3 / max(1, stats["max"] * 3),
             wall_ms=wall(lambda: cuda_linalg.svd3(A)),
             plain_ms=time_ms(lambda: linalg.svd3_plain(A), reps=3),
             library_ms=wall(lambda: torch.linalg.svd(A)),
-            bound=svd3_bound(B))
+            bound=svd3_bound(sweeps, rotations))
+    timed = {k: v for k, v in s_by.items() if "ms" in v}
     path = ("512x3x3", "3x3", "256x3x3")
     timing["svd3"] = dict(
         shape=[512, 3, 3], **{k: s_by["512x3x3"][k] for k in
                               ("ms", "plain_ms", "library_ms", "bound")},
-        ms_by_shape={k: v["ms"] for k, v in s_by.items()},
-        wall_ms_by_shape={k: v["wall_ms"] for k, v in s_by.items()},
-        plain_ms_by_shape={k: v["plain_ms"] for k, v in s_by.items()},
-        library_ms_by_shape={k: v["library_ms"] for k, v in s_by.items()},
-        bound_ms_by_shape={k: v["bound"][0] for k, v in s_by.items()},
+        ms_by_shape={k: v["ms"] for k, v in timed.items()},
+        wall_ms_by_shape={k: v["wall_ms"] for k, v in timed.items()},
+        plain_ms_by_shape={k: v["plain_ms"] for k, v in timed.items()},
+        library_ms_by_shape={k: v["library_ms"] for k, v in timed.items()},
+        bound_ms_by_shape={k: v["bound"][0] for k, v in timed.items()},
+        sweeps_by_shape={k: v["sweeps"] for k, v in s_by.items()},
+        us_per_round_by_shape={k: v["us_per_round"]
+                               for k, v in timed.items()},
         path_ms=sum(s_by[k]["ms"] for k in path),
         path_bound_ms=sum(s_by[k]["bound"][0] for k in path))
     return timing
@@ -2293,28 +2375,7 @@ def eager_phases(dev, smi_line):
          flags=" ".join(build.NVCC_FLAGS))
 
     # ---- helpers ----------------------------------------------------------
-    flush_buf = torch.empty(512 * 1024 * 1024, dtype=torch.int8, device=dev)
-
-    def time_ms(fn, reps=REPS):
-        """Median device time of fn() by CUDA events: 3 warm-up calls, then
-        reps timed ones. Before each, a 512 MB write evicts the 50 MB L2 and,
-        with a sleep of BUSY_CYCLES, keeps the card busy while the host
-        enqueues the launch, so a short kernel's time is its own and not the
-        host's time to launch it."""
-        for _ in range(3):
-            fn()
-        times = []
-        for _ in range(reps):
-            flush_buf.zero_()
-            torch.cuda._sleep(BUSY_CYCLES)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
+    time_ms = device_timer(dev)
 
     def same(a, b):
         """Bit-for-bit equality of two tensors (NaN equals NaN)."""

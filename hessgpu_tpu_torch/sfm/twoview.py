@@ -13,7 +13,7 @@ The two cores are the JAX package's jitted ransac_fundamental and
 ransac_pnp: on the card each replays one captured CUDA graph per
 (threshold, the shapes, the device). Their SVDs go by the tensor's device
 (_null_vector, _svd3): on the card to the kernels of csrc/linalg.cu
-(ops/cuda/linalg.py: fixed-sweep Jacobi that reads nothing back to the
+(ops/cuda/linalg.py: Jacobi stopped on the card, reading nothing back to the
 host, so a core is one graph, eager route and replay alike); on the CPU to
 torch.linalg.svd, the LAPACK of the JAX package's CPU run - or, with
 PLAIN_JACOBI_ON_CPU set (a test seam), to the kernels' plain versions

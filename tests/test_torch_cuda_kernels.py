@@ -22,8 +22,9 @@ VOTE_TOL = 2e-5 of the keypoint's largest entry
 kernel's own histograms must reproduce the kernel's thetas exactly, so a
 keypoint whose orientations differ between the two routes differs through
 its histogram alone, and that is within tolerance. The small-SVD kernels
-(csrc/linalg.cu) equal their plain versions (ops/linalg.py) bit for bit:
-the same Gram sums, rotations and sign rule in float64, -fmad=false.
+(csrc/linalg.cu) equal their plain versions (ops/linalg.py) bit for bit,
+the sweeps each matrix ran too: the same Gram sums, rotations, convergence
+test and sign rule in float64, -fmad=false.
 """
 
 import numpy as np
@@ -665,15 +666,54 @@ def _null_vector_inputs():
             "degenerate_4x8x9": degenerate}
 
 
+def _sweeps_of(A):
+    return torch.zeros(A.shape[:-2], dtype=torch.int32, device=A.device)
+
+
 @pytest.mark.parametrize("case", list(_null_vector_inputs()))
 def test_null_vector_kernel_equals_plain(card, case):
+    """Bit for bit, the sweeps each matrix ran too."""
     A = _null_vector_inputs()[case].to(card)
+    sweeps = _sweeps_of(A)
     reset_launch_counts()
-    got = cuda_linalg.null_vector(A)
-    want = linalg.null_vector_plain(A)
+    got = cuda_linalg.null_vector(A, sweeps=sweeps)
+    want, (want_sweeps, _) = linalg.null_vector_plain(A, return_counts=True)
     assert launch_counts()["null_vector"] == 1     # the plain launched none
     assert got.shape == want.shape and torch.equal(got, want)
     assert not bool(got.isnan().any())
+    assert torch.equal(sweeps, want_sweeps)
+    assert 1 <= int(sweeps.min()) and \
+        int(sweeps.max()) <= linalg.NULL_VECTOR_SWEEPS
+
+
+@pytest.mark.parametrize("max_sweeps", [0, 1, 3])
+def test_null_vector_kernel_under_a_cap_equals_plain(card, max_sweeps):
+    """A cap below the convergence stop: every matrix runs the cap, and the
+    kernel still equals its plain version."""
+    A = _null_vector_inputs()["dlt_256x12x12"].to(card)
+    sweeps = _sweeps_of(A)
+    got = cuda_linalg.null_vector(A, max_sweeps=max_sweeps, sweeps=sweeps)
+    want, (want_sweeps, _) = linalg.null_vector_plain(
+        A, max_sweeps=max_sweeps, return_counts=True)
+    assert torch.equal(got, want) and torch.equal(sweeps, want_sweeps)
+    assert bool((sweeps == max_sweeps).all())
+
+
+def test_null_vector_kernel_freezes_what_converged(card):
+    """Matrices that stop after different sweeps share warps: each gives
+    bit for bit what it gives alone (the zero matrix stops after 1 sweep,
+    its warp partner runs on)."""
+    inputs = _null_vector_inputs()
+    A = torch.cat([inputs["degenerate_4x8x9"],
+                   inputs["eight_point_512x8x9"][:5]]).to(card)
+    sweeps = _sweeps_of(A)
+    got = cuda_linalg.null_vector(A, sweeps=sweeps)
+    assert len(set(sweeps.tolist())) >= 3
+    for i in range(len(A)):
+        alone = _sweeps_of(A[i:i + 1])
+        assert torch.equal(cuda_linalg.null_vector(A[i:i + 1], sweeps=alone),
+                           got[i:i + 1])
+        assert torch.equal(alone, sweeps[i:i + 1])
 
 
 def _svd3_inputs():
@@ -690,14 +730,29 @@ def _svd3_inputs():
 
 @pytest.mark.parametrize("case", list(_svd3_inputs()))
 def test_svd3_kernel_equals_plain(card, case):
+    """Bit for bit, the sweeps each matrix ran too."""
     A = _svd3_inputs()[case].to(card)
+    sweeps = _sweeps_of(A)
     reset_launch_counts()
-    got = cuda_linalg.svd3(A)
-    want = linalg.svd3_plain(A)
+    got = cuda_linalg.svd3(A, sweeps=sweeps)
+    *want, (want_sweeps, _) = linalg.svd3_plain(A, return_counts=True)
     assert launch_counts()["svd3"] == 1
     for g, w in zip(got, want):
         assert g.shape == w.shape and torch.equal(g, w)
         assert not bool(g.isnan().any())
+    assert torch.equal(sweeps, want_sweeps)
+    assert int(sweeps.max()) <= linalg.SVD3_SWEEPS
+
+
+def test_svd3_kernel_under_a_cap_equals_plain(card):
+    A = _svd3_inputs()["512x3x3"].to(card)
+    sweeps = _sweeps_of(A)
+    got = cuda_linalg.svd3(A, max_sweeps=1, sweeps=sweeps)
+    *want, (want_sweeps, _) = linalg.svd3_plain(A, max_sweeps=1,
+                                                return_counts=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(sweeps, want_sweeps) and bool((sweeps == 1).all())
 
 
 def test_ransac_cores_launch_their_kernels(card):

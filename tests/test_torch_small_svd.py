@@ -21,6 +21,11 @@ Tolerances:
 Cases past the random ones: an exact minimal 8-point system (its null
 vector is the true F in normalised coordinates), a collision sample (two
 equal rows: a 2-D null space), the zero matrix, rank-2 and rank-1 3 x 3s.
+The convergence stop (ops/linalg.py): the sweeps run stay within the cap
+everywhere and below it for every determined system at the cores' shapes
+(the gap above); a batch whose matrices stop
+after different sweeps gives each what it gives alone, bit for bit; a cap
+of 1 stops every matrix after 1 sweep.
 """
 
 import jax.numpy as jnp
@@ -189,6 +194,82 @@ def test_null_vector_sign_rule_and_batch_layout(null_inputs):
     np.testing.assert_array_equal(v2.reshape(256, 12), v)
 
 
+CORE_SHAPES = ["eight_point_512x8x9", "refit_428x9", "refit_2048x9",
+               "dlt_256x12x12"]
+
+
+@pytest.mark.parametrize("case", CORE_SHAPES + ["batch_64x16x12"])
+def test_null_vector_stops_below_its_cap(null_inputs, case):
+    """Every system whose null vector is determined (the gap >= 1e-3) is
+    done below the cap (a rank-deficient draw may run to it); a system done
+    below the cap gives the same bits under a higher one, and applied no
+    rotation in its last sweep."""
+    A = t(null_inputs[case])
+    v, (sweeps, rotations) = linalg.null_vector_plain(A, return_counts=True)
+    assert sweeps.shape == A.shape[:-2] and sweeps.dtype == torch.int32
+    assert rotations.shape == A.shape[:-2] and rotations.dtype == torch.int32
+    assert torch.equal(v, linalg.null_vector_plain(A))
+    determined = torch.from_numpy(np.atleast_1d(
+        _gap(null_inputs[case].astype(np.float64)) >= 1e-3))
+    assert bool(determined.any()) and 1 <= int(sweeps.min())
+    assert int(sweeps.reshape(-1)[determined].max()) < \
+        linalg.NULL_VECTOR_SWEEPS
+    more = linalg.null_vector_plain(
+        A, max_sweeps=linalg.NULL_VECTOR_SWEEPS + 1, return_counts=True)
+    below = (sweeps < linalg.NULL_VECTOR_SWEEPS).reshape(-1)
+    assert torch.equal(more[0].reshape(-1, v.shape[-1])[below],
+                       v.reshape(-1, v.shape[-1])[below])
+    for got, want in zip(more[1], (sweeps, rotations)):
+        assert torch.equal(got.reshape(-1)[below], want.reshape(-1)[below])
+    n = A.shape[-1]
+    pairs = n * (n - 1) // 2
+    assert bool((rotations >= 1).all())
+    assert bool((rotations.reshape(-1)[below]
+                 <= (sweeps.reshape(-1)[below] - 1) * pairs).all())
+
+
+def test_null_vector_freezes_what_converged(null_inputs):
+    """Matrices that stop after different sweeps, in one batch: each gives
+    bit for bit what it gives alone, and so do its sweeps."""
+    s = _scene()
+    collision = _hartley_design(
+        s["p1"][np.array([3, 17, 17, 40, 41, 90, 120, 200])],
+        s["p2"][np.array([3, 17, 17, 40, 41, 90, 120, 200])])
+    A = t(np.concatenate([np.zeros((1, 8, 9), np.float32), collision[None],
+                          null_inputs["eight_point_512x8x9"][:6]]))
+    v, counts = linalg.null_vector_plain(A, return_counts=True)
+    sweeps = counts.sweeps
+    assert len(set(sweeps.tolist())) >= 3 and int(sweeps[0]) == 1
+    assert int(counts.rotations[0]) == 0
+    for i in range(len(A)):
+        one, one_counts = linalg.null_vector_plain(A[i:i + 1],
+                                                   return_counts=True)
+        assert torch.equal(one, v[i:i + 1])
+        for got, want in zip(one_counts, counts):
+            assert torch.equal(got, want[i:i + 1])
+
+
+@pytest.mark.parametrize("fn", ["null_vector", "svd3"])
+def test_a_cap_of_one_stops_after_one_sweep(null_inputs, fn):
+    if fn == "null_vector":
+        A = t(null_inputs["dlt_256x12x12"])
+        out = linalg.null_vector_plain(A, max_sweeps=1, return_counts=True)
+        np.testing.assert_allclose(out[0].norm(dim=-1).numpy(), 1.0,
+                                   atol=1e-6)
+    else:
+        A = t(_svd3_inputs()["random_512"])
+        out = linalg.svd3_plain(A, max_sweeps=1, return_counts=True)
+    assert bool((out[-1].sweeps == 1).all())
+    assert not any(bool(x.isnan().any()) for x in out[:-1])
+
+
+def test_the_sweeps_arguments_are_checked():
+    with pytest.raises(ValueError):
+        linalg.null_vector_plain(torch.zeros(2, 8, 9), max_sweeps=-1)
+    with pytest.raises(ValueError):
+        linalg.svd3_plain(torch.zeros(2, 3, 3), max_sweeps=-1)
+
+
 def _svd3_inputs():
     rng = np.random.RandomState(5)
     rank2 = np.array([[1, 2, 3], [4, 5, 9], [7, 8, 15]], np.float32)
@@ -206,8 +287,11 @@ def _svd3_inputs():
                                   "zero", "fundamental"])
 def test_svd3_matches_the_svd(case):
     A = _svd3_inputs()[case]
-    U, S, Vh = (x.numpy().astype(np.float64)
-                for x in linalg.svd3_plain(t(A)))
+    *usv, (sweeps, rotations) = linalg.svd3_plain(t(A), return_counts=True)
+    assert 1 <= int(sweeps.min()) and \
+        int(sweeps.max()) < linalg.SVD3_SWEEPS
+    assert bool((rotations <= (sweeps - 1) * 3).all())
+    U, S, Vh = (x.numpy().astype(np.float64) for x in usv)
     for x in (U, S, Vh):
         assert not np.isnan(x).any()
     A64 = A.astype(np.float64)
