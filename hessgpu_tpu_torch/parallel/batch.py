@@ -27,6 +27,7 @@ from ..features import FeatureTable
 from ..pyramid import (PipelinePlan, _CfgKey, _plan_constants, make_plan,
                        resolve_device, run_pipeline_batched, run_pipeline_jit)
 from ..utils.graphs import GraphCache, on_graph_route
+from ..utils.timing import span
 from .distributed import (DeviceMesh, all_gather, device_mesh, local_mesh,
                           mesh_shards)
 
@@ -104,29 +105,33 @@ def detect_batch(images, cfg: Optional[SiftConfig] = None,
     Returns a batched FeatureTable (leading dim B) on `device`: N slots per
     frame, N = global_feature_cap, or expansion_factor times that when a
     keypoint may get several orientations; desc (B, N, descriptor_dim).
+    With tracing on (utils.timing.tracing) the call is the span
+    `batch.detect_batch`, the parent of its graph's spans.
     """
-    cfg = cfg or SiftConfig()
-    device = resolve_device(device)
-    if isinstance(images, np.ndarray):
-        images = torch.from_numpy(np.ascontiguousarray(images, np.float32))
-    arr = images.to(device=device, dtype=torch.float32)
-    if arr.ndim != 3:
-        raise ValueError(f"detect_batch: expected (B, H, W), got "
-                         f"{tuple(arr.shape)}")
-    b, h, w = arr.shape
-    plan = make_plan(h, w, cfg)
-    if plain:
-        run = lambda x: run_pipeline_batched(x, plan, cfg, plain=True)[0]
-    else:
-        run = lambda x: _batched_pipeline(x, plan, cfg)
-    if mesh is None:
-        return run(arr)
-    if b % mesh.size:
-        raise ValueError(f"detect_batch: batch {b} is not divisible by the "
-                         f"mesh's {mesh.size} shards")
-    if plain:
-        return _sharded_batch(arr, mesh, run)
-    return _sharded_batch_program(arr, plan, cfg, mesh)
+    with span("batch.detect_batch"):
+        cfg = cfg or SiftConfig()
+        device = resolve_device(device)
+        if isinstance(images, np.ndarray):
+            images = torch.from_numpy(
+                np.ascontiguousarray(images, np.float32))
+        arr = images.to(device=device, dtype=torch.float32)
+        if arr.ndim != 3:
+            raise ValueError(f"detect_batch: expected (B, H, W), got "
+                             f"{tuple(arr.shape)}")
+        b, h, w = arr.shape
+        plan = make_plan(h, w, cfg)
+        if plain:
+            run = lambda x: run_pipeline_batched(x, plan, cfg, plain=True)[0]
+        else:
+            run = lambda x: _batched_pipeline(x, plan, cfg)
+        if mesh is None:
+            return run(arr)
+        if b % mesh.size:
+            raise ValueError(f"detect_batch: batch {b} is not divisible by "
+                             f"the mesh's {mesh.size} shards")
+        if plain:
+            return _sharded_batch(arr, mesh, run)
+        return _sharded_batch_program(arr, plan, cfg, mesh)
 
 
 def data_parallel_mesh(n_devices: Optional[int] = None) -> DeviceMesh:

@@ -56,6 +56,20 @@ disable_graphs() is the counterpart of jax.disable_jit(): inside it the
 entry points that replay graphs run their eager bodies instead;
 disable_graphs(caches=[...]) does so for those caches' entry points only.
 It is one setting for the whole process, not one per thread.
+
+Tracing (utils/timing.py): a call records the back-to-back spans
+(timing.phases) `graphs.lookup` (the flatten, checks, key and cache
+lookup, and a capture where one is due), `graphs.copy_in`, `graphs.launch`
+(the replay) and `graphs.clone_out` (the clones and the completion
+event). Every key holds timing.stage_tracing_enabled(): a graph captured
+with the stages traced records a pair of timed events around its whole
+function and around each pipeline stage (timing.stage), and each of its
+replays reports the stages' device time (timing.DeviceStages) - read at
+the graph's next call, under its lock (the span `graphs.read_stages`), or
+by timing.take_trace(), whichever comes first, which waits for the
+replay's last event. Tracing's own host cost: the spans, that read, and
+the replay of a traced graph, whose event nodes make its launch slower
+than the untraced graph's (PERF.md).
 """
 
 from __future__ import annotations
@@ -70,6 +84,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..ops.cuda import build
+from . import timing
 
 _disabled = False
 _disabled_caches: FrozenSet["GraphCache"] = frozenset()
@@ -79,7 +94,8 @@ SEEN_KEYS = 4096
 
 # One capture at a time in the process, and no cache emptied during one.
 _capture_lock = threading.Lock()
-# whether this thread is making a graph (its warm-up call and its capture)
+# whether this thread is making a graph (its warm-up call and its capture),
+# and, while a traced graph is captured, its timing.CaptureSink
 _making = threading.local()
 
 
@@ -155,10 +171,13 @@ class _Graph:
     the device's counters before and after, so other threads' allocations
     meanwhile show in them. warm_up: whether to call fn once eagerly on the
     capture stream first (first-use set-up: kernel attributes, library
-    handles), for a key whose first call this is."""
+    handles), for a key whose first call this is. traced: whether to record
+    timed events around fn and its stages into the graph (the module's
+    docstring)."""
 
     def __init__(self, key, fn: Callable, leaves: List[torch.Tensor], spec,
-                 capture_at: int = 1, warm_up: bool = True):
+                 capture_at: int = 1, warm_up: bool = True,
+                 traced: bool = False):
         self.fn = fn        # and what it holds: tensors the capture read
         dev = leaves[0].device
         t0 = time.perf_counter()
@@ -168,6 +187,8 @@ class _Graph:
         args = pytree.tree_unflatten(self.static_in, spec)
         stream = _capture_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
+        self._whole = None
+        sink = timing.CaptureSink(dev) if traced else None
         with torch.cuda.stream(stream):
             if warm_up:
                 fn(*args)
@@ -180,9 +201,20 @@ class _Graph:
             self.graph.capture_begin(torch.cuda.graph_pool_handle(),
                                      capture_error_mode="thread_local")
             try:
+                if traced:
+                    _making.stages = sink
+                    whole = (timing.timed_event(True),
+                             timing.timed_event(True))
+                    sink.record(whole[0])
                 out = fn(*args)
+                if traced:
+                    sink.record(whole[1])
+                    sink.join()
+                    self._whole = whole
             finally:
+                _making.stages = None
                 self.graph.capture_end()
+        self._stage_events = sink.pairs if traced else None
         torch.cuda.current_stream(dev).wait_stream(stream)
         counts1 = build.launch_counts()
         self.static_out, self.out_spec = pytree.tree_flatten(out)
@@ -201,22 +233,50 @@ class _Graph:
         self.replays = 0
         self._lock = threading.Lock()
         self._done = torch.cuda.Event()     # the last call's clones taken
+        self._unread = None     # the request of a traced replay not read
 
     @property
     def stats(self) -> GraphStats:
         return self._stats._replace(replays=self.replays)
 
-    def __call__(self, leaves: List[torch.Tensor]):
+    def __call__(self, leaves: List[torch.Tensor], rec=None):
+        """rec: the call's timing.phases() recorder (None: tracing off)."""
         with self._lock:
+            if self._unread is not None:
+                self._read_stages()
+                if rec is not None:
+                    rec.mark("graphs.read_stages")
             stream = torch.cuda.current_stream()
             stream.wait_event(self._done)   # a call on another stream
             for s, t in zip(self.static_in, leaves):
                 s.copy_(t)
+            if rec is not None:
+                rec.mark("graphs.copy_in")
             self.graph.replay()
+            if rec is not None:
+                request = rec.mark("graphs.launch")
             out = [t.clone() for t in self.static_out]
             self._done.record(stream)
+            if rec is not None:
+                rec.mark("graphs.clone_out")
+                if self._whole is not None:
+                    # a traced replay, left to read (the module's docstring)
+                    self._unread = request
+                    timing.defer_read(self)
             self.replays += 1
         return pytree.tree_unflatten(out, self.out_spec)
+
+    def read_stages(self) -> None:
+        """Record the device time of the last replay's stages
+        (timing.DeviceStages), if not read yet; waits for its last event."""
+        with self._lock:
+            if self._unread is not None:
+                self._read_stages()
+
+    def _read_stages(self) -> None:
+        timing.record_stages(self._unread, "graph", timing.stage_ms(
+            self._stage_events, self._whole))
+        self._unread = None
 
 
 class GraphCache:
@@ -249,6 +309,7 @@ class GraphCache:
         self.replays = 0           # calls that replayed a graph
 
     def __call__(self, key, fn: Callable, *args):
+        rec = timing.phases()
         leaves, spec = pytree.tree_flatten(args)
         for t in leaves:
             if not isinstance(t, torch.Tensor) or not t.is_cuda:
@@ -263,15 +324,18 @@ class GraphCache:
             raise RuntimeError(
                 "GraphCache called inside another graph's capture: the "
                 "outer function must call the eager body")
+        traced = timing.stage_tracing_enabled()
         full = (key, tuple((tuple(t.shape), t.dtype) for t in leaves),
-                dev.index)
+                dev.index, traced)
         with torch.cuda.device(dev):
             g = self._get(full, lambda: _Graph(
                 full, fn, leaves, spec, self.capture_at,
-                warm_up=self.capture_at == 1))
+                warm_up=self.capture_at == 1, traced=traced))
+            if rec is not None:
+                rec.mark("graphs.lookup")
             if g is None:
                 return fn(*args)
-            return g(leaves)
+            return g(leaves, rec)
 
     def _get(self, key, make: Callable):
         """The graph of `key`, made by make() where the key is due its

@@ -11,6 +11,7 @@ call, in the same order, on the same inputs, so every result is compared
 bit for bit.
 """
 
+import statistics
 import threading
 
 import numpy as np
@@ -254,6 +255,140 @@ def test_clear_cache_frees_the_pipeline_graphs(card, frames):
     tpyr.run_pipeline_jit.clear_cache()
     assert len(tpyr._PIPELINE_GRAPHS) == 0
     assert torch.cuda.memory_allocated(card) < held
+
+
+# ---------------------------------------------------------------------------
+# tracing on the graph route (utils/timing.py)
+# ---------------------------------------------------------------------------
+
+from hessgpu_tpu_torch.utils import timing  # noqa: E402
+
+STAGES = {"default": ("BUILD_PYRAMID", "DETECT_KEYPOINTS",
+                      "GENERATE_FEATURE_LIST", "COMPUTE_ORIENTATIONS",
+                      "MULTI_ORIENTATIONS", "COMPUTE_DESCRIPTORS"),
+          "sd-ofix": ("BUILD_PYRAMID", "DETECT_KEYPOINTS",
+                      "GENERATE_FEATURE_LIST")}
+
+
+@pytest.mark.parametrize("name", sorted(STAGES))
+def test_a_traced_replay_reports_every_bucket(card, frames, name):
+    cfg = SiftConfig(**CONFIGS[name])
+    want = detect_batch(frames[:16], cfg)
+    timing.take_trace()
+    with timing.tracing():
+        detect_batch(frames[:16], cfg)           # captures the traced graph
+        timing.take_trace()
+        got = [detect_batch(frames[:16], cfg) for _ in range(3)]
+        trace = timing.take_trace()
+    for table in got:
+        assert _tables_equal(table, want)
+    top = [s.id for s in trace.spans if s.name == "batch.detect_batch"]
+    assert len(top) == 3 and len(trace.stages) == 3
+    assert [st.request for st in trace.stages] == top
+    for st in trace.stages:
+        assert st.source == "graph"
+        assert tuple(st.ms) == STAGES[name] + ("OTHER", "TOTAL")
+        assert all(st.ms[b] > 0 for b in STAGES[name])
+        assert st.ms["OTHER"] >= 0
+        assert sum(st.ms.values()) - st.ms["TOTAL"] == pytest.approx(
+            st.ms["TOTAL"], rel=1e-6)
+
+
+def test_an_eager_traced_call_reports_its_stages(card, frames):
+    cfg = SiftConfig()
+    timing.take_trace()
+    with disable_graphs(), timing.tracing():
+        detect_batch(frames[:16], cfg)
+        trace = timing.take_trace()
+    (top,) = [s for s in trace.spans if s.name == "batch.detect_batch"]
+    (st,) = trace.stages
+    assert st.source == "eager" and st.request == top.id
+    assert tuple(st.ms) == STAGES["default"]
+    assert all(v > 0 for v in st.ms.values())
+
+
+def test_tracing_captures_a_key_of_its_own(card, frames):
+    cfg = SiftConfig()
+    tpyr.run_pipeline_jit.clear_cache()
+    captures = tpyr._PIPELINE_GRAPHS.captures
+    want = detect_batch(frames[:16], cfg)
+    (plain,) = tpyr._PIPELINE_GRAPHS.stats()
+    assert plain.key[-1] is False
+    with timing.tracing():
+        detect_batch(frames[:16], cfg)
+    assert tpyr._PIPELINE_GRAPHS.captures == captures + 2
+    assert [k[-1] for k in tpyr._PIPELINE_GRAPHS.keys()] == [False, True]
+    timing.take_trace()
+    again = detect_batch(frames[:16], cfg)     # tracing off: the first graph
+    assert _tables_equal(again, want)
+    assert tpyr._PIPELINE_GRAPHS.captures == captures + 2
+    st = {s.key[-1]: s for s in tpyr._PIPELINE_GRAPHS.stats()}
+    assert st[False].replays == 2 and st[True].replays == 1
+    assert st[False].launches == st[True].launches == plain.launches
+    assert timing.take_trace() == timing.Trace([], [])
+
+
+def test_device_stage_report_reads_the_replayed_graph(card, frames):
+    sift = HessianSift(SiftConfig())
+    rep = sift.device_stage_report(frames[0].cpu().numpy())
+    assert tuple(rep) == timing.REFERENCE_BUCKETS
+    assert all(rep[b] > 0 for b in STAGES["default"])
+    assert rep["FEATURES_REDUCTION"] == 0
+    assert sum(rep.values()) - rep["TOTAL"] == pytest.approx(rep["TOTAL"],
+                                                             rel=1e-6)
+    assert any(k[-1] for k in tpyr._PIPELINE_GRAPHS.keys())
+    assert not timing.tracing_enabled()
+
+
+def test_profile_trace_replays_the_untraced_graph(card, frames, tmp_path):
+    import json
+    import os
+    cfg = SiftConfig()
+    tpyr.run_pipeline_jit.clear_cache()
+    want = detect_batch(frames[:16], cfg)
+    captures = tpyr._PIPELINE_GRAPHS.captures
+    with timing.profile_trace(str(tmp_path / "trace")) as d:
+        got = detect_batch(frames[:16], cfg)
+    assert _tables_equal(got, want)
+    assert tpyr._PIPELINE_GRAPHS.captures == captures
+    assert [k[-1] for k in tpyr._PIPELINE_GRAPHS.keys()] == [False]
+    with open(os.path.join(d, "trace.json")) as f:
+        doc = json.load(f)
+    names = [e["name"] for e in doc["traceEvents"]
+             if e.get("cat") == "program"]
+    assert names.count("batch.detect_batch") == 1
+    assert names.count("graphs.launch") == 1
+    assert timing.take_trace() == timing.Trace([], [])
+
+
+def test_each_launch_span_encloses_its_graph_launch(card, frames):
+    """The program's spans and the profiler's runtime events on one clock:
+    each graphs.launch span holds its cudaGraphLaunch, the median margin on
+    either side within 20 us (a single one also holds the host's
+    scheduling)."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = SiftConfig()
+    with timing.tracing():
+        detect_batch(frames[:16], cfg)
+        torch.cuda.synchronize()
+        timing.take_trace()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                detect_batch(frames[:16], cfg)
+                torch.cuda.synchronize()
+        spans = [s for s in timing.take_trace().spans
+                 if s.name == "graphs.launch"]
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    calls = sorted((t0 + e.time_range.start * 1000,
+                    t0 + e.time_range.end * 1000) for e in prof.events()
+                   if e.name.startswith("cudaGraphLaunch"))
+    assert len(spans) == len(calls) == 10
+    for sp, (a, b) in zip(spans, calls):
+        assert sp.start_ns <= a <= b <= sp.end_ns
+    assert statistics.median(a - sp.start_ns
+                             for sp, (a, _) in zip(spans, calls)) <= 20_000
+    assert statistics.median(sp.end_ns - b
+                             for sp, (_, b) in zip(spans, calls)) <= 20_000
 
 
 # ---------------------------------------------------------------------------
