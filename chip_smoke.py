@@ -289,7 +289,8 @@ F32_FLOPS_PER_S = 67e12       # float32 outside the tensor cores
 # downsample2 is the chain's decimation epilogue on the main path
 EXPECTED_LAUNCHES = {"blur": 1, "octave_chain": 5, "downsample2": 0,
                      "detect_octave": 5, "orientation": 0, "descriptor": 0,
-                     "null_vector": 0, "svd3": 0}
+                     "null_vector": 0, "svd3": 0, "row_counts": 5,
+                     "level_scan": 1, "table_scatter": 1}
 EXPECTED_LAUNCHES_DEFAULT = dict(EXPECTED_LAUNCHES, orientation=1,
                                  descriptor=1)
 # per-kernel details that the kernels line carries where a kernel has them
@@ -372,7 +373,8 @@ BIG_HEIGHT, BIG_WIDTH = 2400, 3200
 # orientation and one descriptor launch over every level and band
 EXPECTED_SPATIAL = {"blur": 33, "octave_chain": 0, "downsample2": 7,
                     "detect_octave": 8, "orientation": 1, "descriptor": 1,
-                    "null_vector": 0, "svd3": 0}
+                    "null_vector": 0, "svd3": 0, "row_counts": 0,
+                    "level_scan": 0, "table_scatter": 0}
 # the same as a graph's launches (read at its capture: the kernels launched
 # at least once)
 EXPECTED_SPATIAL_GRAPH = {k: n for k, n in EXPECTED_SPATIAL.items() if n}
@@ -385,7 +387,10 @@ KERNEL_SYMBOL = {"blur": "blur_kernel", "octave_chain": "chain_kernel",
                  "detect_octave": "detect_kernel",
                  "orientation": "orientation_kernel",
                  "descriptor": "descriptor_kernel",
-                 "null_vector": "null_vector_", "svd3": "svd3_kernel"}
+                 "null_vector": "null_vector_", "svd3": "svd3_kernel",
+                 "row_counts": "row_count_kernel",
+                 "level_scan": "level_scan_kernel",
+                 "table_scatter": "table_scatter_kernel"}
 KERNEL_INFO = {
     "blur": ("hessgpu_tpu_torch/csrc/conv.cu",
              "hessgpu_tpu/ops/pallas/conv.py:381"),
@@ -3392,7 +3397,7 @@ def eager_phases(dev, smi_line):
                      maps_fo, dwin_fo)
     del t_fo, maps_fo, got_fo
     expected_fo = dict(EXPECTED_LAUNCHES_DEFAULT, octave_chain=n_fo,
-                       detect_octave=n_fo)
+                       detect_octave=n_fo, row_counts=n_fo)
     reset_launch_counts()
     table_fo = detect_batch(up, cfg_fo)
     torch.cuda.synchronize()

@@ -12,6 +12,10 @@ slot s takes the first cell whose `pos` reaches s + 1 (a binary search).
 Shapes never depend on the data, so nothing synchronises with the host
 (torch.nonzero and boolean indexing would).
 
+_globalize concatenates the per-octave lists into the global table
+(GlobalTable), level-major. On the card ops/cuda/compact.py does both steps
+in kernels; these functions are its plain route.
+
 Capacity policy mirrors the reference: per-level cap
 min(0.5% of pixels, 4096) (PyramidCU.cpp:443-451, GlobalUtil.cpp:67-68);
 overflowing keypoints are dropped in raster order.
@@ -19,7 +23,7 @@ overflowing keypoints are dropped in raster order.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import List, NamedTuple, Sequence
 
 import torch
 
@@ -160,3 +164,41 @@ def compact_level_keypoints(maps, sigma: float, sigma_step: float,
     stacked = type(maps)(*(a.unsqueeze(-3) for a in maps))
     fl = compact_octave_keypoints(stacked, [sigma], sigma_step, capacity)
     return FeatureList(*(a.squeeze(-2) for a in fl))
+
+
+class GlobalTable(NamedTuple):
+    """Cross-level compacted keypoint table (level coordinates), (B, G)."""
+    x: torch.Tensor
+    y: torch.Tensor
+    sigma: torch.Tensor
+    theta: torch.Tensor
+    response: torch.Tensor
+    ftype: torch.Tensor
+    level_id: torch.Tensor   # i32 flattened (octave * s + key_level - 1)
+    valid: torch.Tensor
+
+    def count(self) -> torch.Tensor:
+        return self.valid.sum(dim=-1, dtype=torch.int32)
+
+
+def _globalize(lists: List[FeatureList], cap: int,
+               level_ids: torch.Tensor) -> GlobalTable:
+    """Concatenate per-octave blocked lists ((B, NK, cap_o) leaves) and
+    compact into one global table, level-major (= the reference's output
+    order). level_ids: the static level id of each concatenated slot
+    (_PlanConstants.level_ids)."""
+    def cat(field):
+        return torch.cat([getattr(fl, field).flatten(-2) for fl in lists],
+                         dim=-1)
+
+    valid = cat("valid")
+    lid = level_ids.expand(valid.shape)
+    _, outs, slot_valid = compact_sorted(
+        valid,
+        [cat("x"), cat("y"), cat("sigma"), cat("response"), cat("ftype"),
+         lid],
+        cap,
+    )
+    x, y, s, r, ft, lid = outs
+    return GlobalTable(x=x, y=y, sigma=s, theta=torch.zeros_like(x),
+                       response=r, ftype=ft, level_id=lid, valid=slot_valid)

@@ -39,7 +39,8 @@ build_seconds: Optional[float] = None   # wall time of the build, if one ran
 # launches per kernel; a wrapper adds one where it launches, nowhere else
 _launches: Dict[str, int] = {
     "blur": 0, "octave_chain": 0, "downsample2": 0, "detect_octave": 0,
-    "orientation": 0, "descriptor": 0, "null_vector": 0, "svd3": 0}
+    "orientation": 0, "descriptor": 0, "null_vector": 0, "svd3": 0,
+    "row_counts": 0, "level_scan": 0, "table_scatter": 0}
 
 
 def count_launch(name: str) -> None:

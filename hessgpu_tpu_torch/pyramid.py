@@ -6,8 +6,9 @@ hessgpu_tpu/pyramid.py).
 The batch dimension is written out: every stage takes (B, ...) tensors and
 run_pipeline is run_pipeline_batched at B = 1. On CUDA tensors the dense
 and the per-keypoint stages run the hand-written kernels (ops/cuda); on CPU
-tensors their plain PyTorch versions. Compaction and the table work are
-tensor code with static shapes.
+tensors their plain PyTorch versions. On the card the compaction writes the
+global table through kernels too (ops/cuda/compact.py); truncation and
+orientation expansion are tensor code with static shapes.
 
 Every SiftConfig runs, both detector personalities, the upsampled first
 octave (first_octave < 0, DoG) and both pyramid schedules (conv_mode "chain"
@@ -36,8 +37,9 @@ from .config import (SiftConfig, TRUNCATE_KEEP_HIGHEST_LEVELS,
                      TRUNCATE_KEEP_LOWEST_LEVELS, TRUNCATE_TOP_K)
 from .features import FeatureTable
 from .ops import gaussian
-from .ops.compaction import (FeatureList, compact_octave_keypoints,
+from .ops.compaction import (GlobalTable, compact_octave_keypoints,
                              compact_sorted)
+from .ops.cuda import compact as kcompact
 from .ops.cuda import conv as kconv
 from .ops.cuda import detect as kdetect
 from .ops.cuda import patch as kpatch
@@ -278,44 +280,6 @@ def _detect_octave(gauss_oct: torch.Tensor, cfg: SiftConfig,
               detector=cfg.detector)
 
 
-class GlobalTable(NamedTuple):
-    """Cross-level compacted keypoint table (level coordinates), (B, G)."""
-    x: torch.Tensor
-    y: torch.Tensor
-    sigma: torch.Tensor
-    theta: torch.Tensor
-    response: torch.Tensor
-    ftype: torch.Tensor
-    level_id: torch.Tensor   # i32 flattened (octave * s + key_level - 1)
-    valid: torch.Tensor
-
-    def count(self) -> torch.Tensor:
-        return self.valid.sum(dim=-1, dtype=torch.int32)
-
-
-def _globalize(lists: List[FeatureList], cap: int,
-               level_ids: torch.Tensor) -> GlobalTable:
-    """Concatenate per-octave blocked lists ((B, NK, cap_o) leaves) and
-    compact into one global table, level-major (= the reference's output
-    order). level_ids: the static level id of each concatenated slot
-    (_PlanConstants.level_ids)."""
-    def cat(field):
-        return torch.cat([getattr(fl, field).flatten(-2) for fl in lists],
-                         dim=-1)
-
-    valid = cat("valid")
-    lid = level_ids.expand(valid.shape)
-    _, outs, slot_valid = compact_sorted(
-        valid,
-        [cat("x"), cat("y"), cat("sigma"), cat("response"), cat("ftype"),
-         lid],
-        cap,
-    )
-    x, y, s, r, ft, lid = outs
-    return GlobalTable(x=x, y=y, sigma=s, theta=torch.zeros_like(x),
-                       response=r, ftype=ft, level_id=lid, valid=slot_valid)
-
-
 def _recompact(table: GlobalTable, keep: torch.Tensor, cap: int) -> GlobalTable:
     _, outs, slot_valid = compact_sorted(
         keep & table.valid,
@@ -478,7 +442,10 @@ def detect_from_octaves(octaves: List[torch.Tensor], plan: PipelinePlan,
     consts = _plan_constants(plan, cfg, device)
 
     # ---- detection + per-octave compaction ----------------------------------
-    all_lists: List[FeatureList] = []
+    # on the card the kernels of ops/cuda/compact.py: each octave's rows
+    # counted here, the table written from the maps below
+    compact = compact_octave_keypoints if plain else kcompact.compact_octave
+    lists = []
     grads: List[torch.Tensor] = []
     rots: List[torch.Tensor] = []
     for o, gauss_oct in enumerate(octaves):
@@ -487,18 +454,17 @@ def detect_from_octaves(octaves: List[torch.Tensor], plan: PipelinePlan,
             grads.append(grad)
             rots.append(rot)
         with stage("GENERATE_FEATURE_LIST", device):
-            all_lists.append(compact_octave_keypoints(
-                maps, consts.key_sigmas, sigma_step,
-                plan.level_caps[o * nkey]))
+            lists.append(compact(maps, consts.key_sigmas, sigma_step,
+                                 plan.level_caps[o * nkey]))
 
     # ---- global table ---------------------------------------------------------
     # per-(octave, level) counts and the pre-reduction total for the -v
     # report (reference PyramidCU.cpp:1327-1343, SiftPyramid.cpp:219-247)
     G = min(cfg.global_feature_cap, sum(plan.level_caps))
+    table_of = kcompact.feature_table_plain if plain \
+        else kcompact.feature_table
     with stage("GENERATE_FEATURE_LIST", device):
-        level_counts = torch.cat([fl.count() for fl in all_lists], dim=-1)
-        table = _globalize(all_lists, G, consts.level_ids)
-        pre_count = table.count()
+        table, level_counts, pre_count = table_of(lists, G, consts.level_ids)
 
     # ---- truncation (reference LimitFeatureCount, SiftPyramid.cpp:201-278)
     if cfg.feature_count_threshold > 0:

@@ -39,7 +39,8 @@ def _eager_launches(cfg, h, w):
     per_keypoint = int(not cfg.fixed_orientation)
     counts = {"blur": 1, "octave_chain": n_oct, "detect_octave": n_oct,
               "orientation": per_keypoint,
-              "descriptor": int(cfg.compute_descriptors)}
+              "descriptor": int(cfg.compute_descriptors),
+              "row_counts": n_oct, "level_scan": 1, "table_scatter": 1}
     return {k: n for k, n in counts.items() if n}
 
 

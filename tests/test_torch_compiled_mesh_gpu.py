@@ -225,7 +225,8 @@ def test_batch_graph_holds_every_shards_launches(card, frames):
     st = tbatch._MESH_BATCH_GRAPHS.stats()[-1]
     assert st.launches == {"blur": 2, "octave_chain": 10,
                            "detect_octave": 10, "orientation": 2,
-                           "descriptor": 2}
+                           "descriptor": 2, "row_counts": 10,
+                           "level_scan": 2, "table_scatter": 2}
 
 
 def test_threads_through_one_mesh_graph(card, frames):

@@ -430,7 +430,9 @@ def test_default_main_path_goes_through_the_kernels(card, detector):
     assert launch_counts() == {"blur": 1, "octave_chain": n_oct,
                                "downsample2": 0,
                                "detect_octave": n_oct, "orientation": 1,
-                               "descriptor": 1, "null_vector": 0, "svd3": 0}
+                               "descriptor": 1, "null_vector": 0, "svd3": 0,
+                               "row_counts": n_oct, "level_scan": 1,
+                               "table_scatter": 1}
     want = detect_batch(imgs, cfg, plain=True)
     assert launch_counts()["descriptor"] == 1           # plain launched none
     assert int(got.count().min()) >= 10
@@ -455,7 +457,9 @@ def test_main_path_goes_through_the_kernels(card, detector):
     assert launch_counts() == {"blur": 1, "octave_chain": n_oct,
                                "downsample2": 0,
                                "detect_octave": n_oct, "orientation": 0,
-                               "descriptor": 0, "null_vector": 0, "svd3": 0}
+                               "descriptor": 0, "null_vector": 0, "svd3": 0,
+                               "row_counts": n_oct, "level_scan": 1,
+                               "table_scatter": 1}
     want = detect_batch(imgs, cfg, plain=True)
     assert launch_counts()["detect_octave"] == n_oct     # plain launched none
     assert int(got.count().min()) >= 10
@@ -482,7 +486,8 @@ def test_direct_pyramid_kernel_route_equals_plain(card, shape, detector):
     assert launch_counts() == {
         "blur": 1 + blurred * plan.num_octaves, "octave_chain": 0,
         "downsample2": plan.num_octaves - 1, "detect_octave": 0,
-        "orientation": 0, "descriptor": 0, "null_vector": 0, "svd3": 0}
+        "orientation": 0, "descriptor": 0, "null_vector": 0, "svd3": 0,
+        "row_counts": 0, "level_scan": 0, "table_scatter": 0}
     want = tpyr._build_pyramid(imgs, plan, cfg, plain=True)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -512,7 +517,9 @@ def test_direct_main_path_goes_through_the_kernels(card, detector):
     assert launch_counts() == {"blur": 1 + levels * n_oct, "octave_chain": 0,
                                "downsample2": n_oct - 1,
                                "detect_octave": n_oct, "orientation": 0,
-                               "descriptor": 0, "null_vector": 0, "svd3": 0}
+                               "descriptor": 0, "null_vector": 0, "svd3": 0,
+                               "row_counts": n_oct, "level_scan": 1,
+                               "table_scatter": 1}
     want = detect_batch(imgs, cfg, plain=True)
     assert int(got.count().min()) >= 10
     for f in got._fields:
@@ -634,6 +641,179 @@ def test_spatial_path_goes_through_the_kernels(card, n):
             assert torch.equal(getattr(got, f), getattr(one, f)), f
     assert float((got.desc - want.desc).abs().max()) <= 2e-6
     assert torch.equal(got.desc, one.desc)
+
+
+# ---- the feature-list kernels (csrc/compact.cu) -----------------------------
+
+def _dot_rows(h=96, w=640, step=8, rows=(24, 48, 72), seed=0):
+    """tests/test_torch_pipeline.py's row-cap flood: rows of dark Gaussian
+    dots `step` px apart on a faintly noisy grey, far more keypoints in one
+    row of octave 0 than the per-row cap keeps."""
+    rng = np.random.RandomState(seed)
+    img = 0.6 + 0.02 * rng.rand(h, w)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for r in rows:
+        for c in range(step // 2 + 3, w - 3, step):
+            cy, cx = r + rng.uniform(-0.3, 0.3), c + rng.uniform(-0.3, 0.3)
+            img -= (0.5 + 0.1 * rng.rand()) \
+                * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 8.0)
+    return img.astype(np.float32)
+
+
+def _feature_lists(maps, caps, G, sigmas, step, level_ids):
+    """GENERATE_FEATURE_LIST over the same maps on the card's route
+    (compact_octave + feature_table) and on the plain route
+    (compact_octave_keypoints + _globalize), and the card route's
+    launches."""
+    from hessgpu_tpu_torch.ops import compaction as tcomp
+    from hessgpu_tpu_torch.ops.cuda import compact as kcompact
+    reset_launch_counts()
+    got = kcompact.feature_table(
+        [kcompact.compact_octave(m, sigmas, step, c)
+         for m, c in zip(maps, caps)], G, level_ids)
+    launches = launch_counts()
+    want = kcompact.feature_table_plain(
+        [tcomp.compact_octave_keypoints(m, sigmas, step, c)
+         for m, c in zip(maps, caps)], G, level_ids)
+    return got, want, launches
+
+
+def _pipeline_feature_lists(imgs, cfg):
+    """_feature_lists over the detect kernel's maps of a batch (B, H, W)."""
+    _, h, w = imgs.shape
+    plan = make_plan(h, w, cfg)
+    p = cfg.scale_params()
+    nk = len(p.key_levels)
+    consts = tpyr._plan_constants(plan, cfg, imgs.device)
+    octaves = tpyr._build_pyramid(imgs.contiguous(), plan, cfg)
+    maps = [tpyr._detect_octave(g, cfg)[0] for g in octaves]
+    G = min(cfg.global_feature_cap, sum(plan.level_caps))
+    caps = [plan.level_caps[o * nk] for o in range(plan.num_octaves)]
+    got, want, launches = _feature_lists(maps, caps, G, consts.key_sigmas,
+                                         p.sigmak, consts.level_ids)
+    assert launches["row_counts"] == plan.num_octaves
+    assert launches["level_scan"] == launches["table_scatter"] == 1
+    return got, want, plan, maps
+
+
+def _assert_feature_lists_equal(got, want):
+    (table, counts, pre), (wtable, wcounts, wpre) = got, want
+    for f in table._fields:
+        a, b = getattr(table, f), getattr(wtable, f)
+        assert a.shape == b.shape and a.dtype == b.dtype, f
+        assert torch.equal(a, b), f
+    for a, b in ((counts, wcounts), (pre, wpre)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+FEATURE_LIST_CASES = {
+    "640x480-b16": ((16, 480, 640), {}),
+    "dog-640x480-b16": ((16, 480, 640), dict(detector="dog")),
+    "sd-ofix-640x480-b16": ((16, 480, 640), SLICE),
+    "level-cap": ((4, 480, 640), dict(threshold=0.0005,
+                                      max_level_features=32)),
+    "table-cap": ((4, 480, 640), dict(global_feature_cap=64)),
+    "odd-shapes": ((3, 101, 75), {}),
+    "4032x6048": ((1, 4032, 6048), {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FEATURE_LIST_CASES))
+def test_feature_list_kernels_equal_plain(card, case):
+    """The table, level counts and count of the feature-list kernels equal
+    the plain route's on the same maps, every field bit for bit (sigma
+    included: the kernel's powf is PyTorch's CUDA pow)."""
+    shape, kw = FEATURE_LIST_CASES[case]
+    cfg = SiftConfig(**kw)
+    imgs = _texture_batch(shape, card)
+    got, want, plan, _ = _pipeline_feature_lists(imgs, cfg)
+    _assert_feature_lists_equal(got, want)
+    counts, pre = want[1], want[2]
+    G = want[0].x.shape[-1]
+    assert int(pre.min()) > 0
+    if case == "level-cap":
+        caps = torch.tensor(plan.level_caps, device=card)
+        assert bool((counts == caps).any())
+    if case == "table-cap":
+        assert int(pre.max()) == G < int(counts.sum(-1).max())
+
+
+def test_feature_list_kernels_under_a_row_cap_flood(card):
+    """The row-cap flood of the CPU tests: octave 0 rows hold more valid
+    cells than the per-row cap, which decides the kernels' membership as
+    the plain route's."""
+    from hessgpu_tpu_torch.ops.compaction import _row_cap
+    imgs = torch.from_numpy(np.stack([_dot_rows(), _dot_rows(seed=1)])) \
+        .to(card)
+    got, want, _, maps = _pipeline_feature_lists(imgs, SiftConfig())
+    _assert_feature_lists_equal(got, want)
+    per_row = maps[0].valid.sum(-1)
+    assert int(per_row.max()) > min(640, _row_cap(640))
+
+
+def test_feature_list_batched_equals_per_image(card):
+    imgs = _texture_batch((4, 480, 640), card)
+    cfg = SiftConfig()
+    (table, counts, pre), _, _, _ = _pipeline_feature_lists(imgs, cfg)
+    for i in range(4):
+        (t1, c1, p1), _, _, _ = _pipeline_feature_lists(imgs[i:i + 1], cfg)
+        for a, b in zip(table, t1):
+            assert torch.equal(a[i:i + 1], b)
+        assert torch.equal(counts[i:i + 1], c1)
+        assert torch.equal(pre[i:i + 1], p1)
+
+
+def test_feature_list_sigma_over_many_offsets(card):
+    """3.1 M kept cells of synthetic maps, ds uniform in (-1, 1) and a few
+    exact values, rows 2040 bytes long (every other row starts mid-chunk)
+    and half valid, so each row's cap (63) decides: the kernels' table
+    equals the plain route's, sigma = key_sigma * pow(step, ds) bit for
+    bit."""
+    rng = np.random.RandomState(11)
+    shape = (64, 3, 256, 2040)
+    ds = rng.uniform(-1, 1, shape).astype(np.float32)
+    ds[..., :4] = np.float32([0.0, 0.5, -0.5, 2.0 ** -20])
+    u = lambda: torch.from_numpy(   # noqa: E731
+        rng.uniform(-0.95, 0.95, shape).astype(np.float32)).to(card)
+    from hessgpu_tpu_torch.ops.keypoint import KeypointMaps
+    maps = KeypointMaps(
+        valid=torch.from_numpy(rng.rand(*shape) < 0.5).to(card),
+        response=u(), dx=u(), dy=u(), ds=torch.from_numpy(ds).to(card),
+        ftype=torch.from_numpy(rng.randint(0, 3, shape).astype(np.int32))
+        .to(card))
+    cap = 256 * 63
+    sigmas = torch.tensor([2.0159, 2.5398, 3.2], dtype=torch.float32,
+                          device=card)
+    level_ids = torch.arange(3, dtype=torch.int32,
+                             device=card).repeat_interleave(cap)
+    got, want, _ = _feature_lists([maps], [cap], 3 * cap, sigmas,
+                                  2.0 ** (1.0 / 3.0), level_ids)
+    _assert_feature_lists_equal(got, want)
+    assert int(want[2].min()) == 3 * cap
+
+
+def test_captured_pipeline_holds_the_feature_list_kernels(card):
+    """A captured detect_batch holds the feature-list kernels' launches, and
+    under -sd -ofix (no orientation expansion, whose compaction stays
+    PyTorch) its trace holds no PyTorch scan or binary search."""
+    from hessgpu_tpu_torch.utils.timing import device_profile
+    imgs = _texture_batch((16, 480, 640), card)
+    for kw in ({}, SLICE):
+        cfg = SiftConfig(**kw)
+        detect_batch(imgs, cfg)
+        st = tpyr._PIPELINE_GRAPHS.stats()[-1]
+        n_oct = make_plan(480, 640, cfg).num_octaves
+        assert (st.launches["row_counts"], st.launches["level_scan"],
+                st.launches["table_scatter"]) == (n_oct, 1, 1)
+    names = list(device_profile(detect_batch, imgs, SiftConfig(**SLICE))
+                 ["by_kernel"])
+    for sym in ("row_count_kernel", "level_scan_kernel",
+                "table_scatter_kernel"):
+        assert any(sym in n for n in names), (sym, names)
+    assert not any("searchsorted" in n for n in names), names
+    assert not any("scan" in n and "level_scan_kernel" not in n
+                   for n in names), names
 
 
 # ---- the small-SVD kernels of the RANSAC cores -------------------------------

@@ -168,12 +168,15 @@ def test_cpu_runs_count_no_launches():
     assert launch_counts() == {"blur": 0, "octave_chain": 0,
                                "downsample2": 0, "detect_octave": 0,
                                "orientation": 0, "descriptor": 0,
-                               "null_vector": 0, "svd3": 0}
+                               "null_vector": 0, "svd3": 0,
+                               "row_counts": 0, "level_scan": 0,
+                               "table_scatter": 0}
 
 
 def test_sources_are_in_the_package():
     names = sorted(p.name for p in build.sources())
-    assert names == ["conv.cu", "detect.cu", "linalg.cu", "patch.cu"]
+    assert names == ["compact.cu", "conv.cu", "detect.cu", "linalg.cu",
+                     "patch.cu"]
     assert "-fmad=false" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert not any("fast_math" in f for f in build.NVCC_FLAGS)
